@@ -1,0 +1,516 @@
+"""Sliding-window odometry backend.
+
+Window feature stacks, local-map construction by re-projecting window sweeps
+into the pivot frame, the windowed Gauss-Newton over (pivot..newest) poses,
+and VINS-style marginalization of the pivot pose. Counterpart of
+``mloam_tpu/odometry/estimator.py``.
+
+Design decisions:
+  * The window is a fixed-shape NamedTuple (stacked poses + stacked per-frame
+    feature tensors); sliding is a roll, pushing a slice write.
+  * The local map is rebuilt per step as a voxel reduction over the stacked
+    window clouds — no persistent kd-tree, no incremental state.
+  * The solve optimizes poses pivot..newest (opt_window + 1 blocks): normal
+    equations assembled densely from closed-form point Jacobians chained
+    through the pose graph, solved directly.
+  * Marginalizing the pivot = dense Schur on the final (H, g); the resulting
+    prior (with its linearization poses) rides in the window state and is
+    replayed with first-order correction.
+
+Not ported yet, each refused with ``NotImplementedError``: online extrinsic
+calibration (``calibrate_ext=True``), good-feature selection
+(``gf_ratio < 1``), the armed degeneracy gate (``eig_threshold > 0``), loss
+modes other than huber, and the autodiff linearization (``analytic=False``).
+
+Feature stacks carry a lidar axis; all lidars' features are projected through
+their extrinsics into the pivot frame.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mloam_tpu_torch.config import MloamConfig
+from mloam_tpu_torch.core import rotations as rot
+from mloam_tpu_torch.core import se3
+from mloam_tpu_torch.core.se3 import Pose
+from mloam_tpu_torch.frontend.features import FeatCloud
+from mloam_tpu_torch.ops import select, voxel
+from mloam_tpu_torch.solver import factors
+from mloam_tpu_torch.solver.gauss_newton import gauss_newton
+from mloam_tpu_torch.solver.marginalization import QuadPrior, schur_marginalize_quad
+
+
+class WindowState(NamedTuple):
+    """Fixed-shape sliding window. S = window_size + 1 slots, L lidars."""
+
+    poses: Pose            # [S] world <- base_i
+    corner: FeatCloud      # [S, L, Nc] per-slot per-lidar corner features
+    surf: FeatCloud        # [S, L, Ns] surf features
+    ext: Pose              # [L] base <- lidar
+    count: torch.Tensor    # scalar int32: frames currently in window
+    prior: QuadPrior
+    prior_poses: Pose      # [S] linearization poses for the prior
+    prior_ext: Pose        # [L] linearization extrinsics for the prior
+    # degeneracy persistence state: carried for layout parity with the JAX
+    # package; only the (unported) armed gate updates it
+    deg_dir: torch.Tensor   # [6]
+    deg_count: torch.Tensor  # scalar int32
+
+
+def _tmap(fn, *trees):
+    """Map ``fn`` over the tensors of matching NamedTuples."""
+    return type(trees[0])(*(fn(*leaves) for leaves in zip(*trees)))
+
+
+def _stack_feat(fs: list[FeatCloud]) -> FeatCloud:
+    return _tmap(lambda *x: torch.stack(x), *fs)
+
+
+def init_window(cfg: MloamConfig, cap_corner: int, cap_surf: int,
+                device=None) -> WindowState:
+    s = cfg.odometry.window_size + 1
+    L = cfg.rig.n_lidars
+
+    def stack(n):
+        return _tmap(lambda x: x.expand((s, L) + x.shape).clone(),
+                     FeatCloud.zeros(n, device=device))
+
+    opt_dim = prior_dim(cfg, calibrate_ext=False)
+    return WindowState(
+        poses=Pose.identity((s,), device=device),
+        corner=stack(cap_corner),
+        surf=stack(cap_surf),
+        ext=Pose.identity((L,), device=device),
+        count=torch.tensor(0, dtype=torch.int32, device=device),
+        prior=QuadPrior.empty(opt_dim, device=device),
+        prior_poses=Pose.identity((s,), device=device),
+        prior_ext=Pose.identity((L,), device=device),
+        deg_dir=torch.zeros((6,), device=device),
+        deg_count=torch.tensor(0, dtype=torch.int32, device=device),
+    )
+
+
+def prior_dim(cfg: MloamConfig, calibrate_ext: bool) -> int:
+    d = (cfg.odometry.opt_window_size + 1) * 6
+    if calibrate_ext:
+        d += (cfg.rig.n_lidars - 1) * 6
+    return d
+
+
+def reset_prior(state: WindowState, cfg: MloamConfig,
+                calibrate_ext: bool) -> WindowState:
+    """Re-initialize the prior to the shape of the given mode. The
+    linearization points are *copies* of the current poses/extrinsics: the
+    window is rolled and written in place, so they must not alias it."""
+    dev = state.poses.q.device
+    return state._replace(
+        prior=QuadPrior.empty(prior_dim(cfg, calibrate_ext), device=dev),
+        prior_poses=_tmap(torch.clone, state.poses),
+        prior_ext=_tmap(torch.clone, state.ext),
+    )
+
+
+def set_extrinsics(state: WindowState, ext: Pose) -> WindowState:
+    return state._replace(ext=ext)
+
+
+def push_frame(
+    state: WindowState,
+    pose: Pose,
+    corner: FeatCloud,  # [L, Nc]
+    surf: FeatCloud,    # [L, Ns]
+    cfg: MloamConfig,
+) -> WindowState:
+    """Slide the window by one and write the new frame into the last slot."""
+    s = cfg.odometry.window_size + 1
+
+    def roll_set(stack, new):
+        def one(x, n):
+            rolled = torch.roll(x, -1, dims=0)  # a fresh tensor: no aliasing
+            rolled[s - 1] = n
+            return rolled
+        return _tmap(one, stack, new)
+
+    return state._replace(
+        poses=roll_set(state.poses, pose),
+        corner=roll_set(state.corner, corner),
+        surf=roll_set(state.surf, surf),
+        prior_poses=roll_set(state.prior_poses, pose),
+        count=torch.clamp(state.count + 1, max=s),
+    )
+
+
+def build_local_map(state: WindowState, cfg: MloamConfig,
+                    map_lidars: tuple[int, ...] | None = None):
+    """Project window sweeps' features into the pivot frame and voxel-filter.
+
+    ``map_lidars`` restricts which lidars' clouds FORM the map (the reference
+    lidar only during online calibration). None = all lidars (pure odometry).
+    """
+    s = cfg.odometry.window_size + 1
+    pivot = s - 1 - cfg.odometry.opt_window_size
+    dev = state.poses.q.device
+    piv_pose = Pose(state.poses.q[pivot], state.poses.t[pivot])
+    L = cfg.rig.n_lidars
+    lidar_ok = torch.ones((L,), dtype=torch.bool, device=dev)
+    if map_lidars is not None:
+        lidar_ok = torch.zeros((L,), dtype=torch.bool, device=dev)
+        lidar_ok[list(map_lidars)] = True
+
+    s_idx = torch.arange(s, device=dev)
+    # only slots holding real frames; the NEWEST frame is excluded from its
+    # own map so it is never pinned to its prediction by self-matching.
+    filled = (s_idx >= (s - state.count)) & (s_idx < s - 1)
+    rel = se3.compose(se3.inverse(Pose(piv_pose.q[None], piv_pose.t[None])),
+                      state.poses)                                   # [S]
+    T = se3.compose(Pose(rel.q[:, None], rel.t[:, None]),
+                    Pose(state.ext.q[None], state.ext.t[None]))      # [S, L]
+
+    def project(stack: FeatCloud):
+        xyz = se3.transform_points(T, stack.xyz)                     # [S,L,N,3]
+        mask = stack.mask & filled[:, None, None] & lidar_ok[None, :, None]
+        return xyz.reshape(-1, 3), mask.reshape(-1)
+
+    c_xyz, c_mask = project(state.corner)
+    s_xyz, s_mask = project(state.surf)
+    # sort-free compaction first: the stacks are mostly padding (per-frame
+    # caps are worst-case), and the voxel sort cost scales with row count,
+    # not valid count. Exact whenever the valid points fit the bound.
+    pc, ps = cfg.odometry.localmap_precap_corner, cfg.odometry.localmap_precap_surf
+    if pc is not None and pc * L < c_xyz.shape[0]:
+        c_xyz, c_mask = select.compact_stride(c_xyz, c_mask, pc * L)
+    if ps is not None and ps * L < s_xyz.shape[0]:
+        s_xyz, s_mask = select.compact_stride(s_xyz, s_mask, ps * L)
+    # fused packed single-key sort over both feature classes (the window
+    # local map spans well under the 1024-cell grid at these leaves)
+    return voxel.voxel_downsample_two_class(
+        c_xyz, c_mask, cfg.odometry.corner_map_leaf,
+        s_xyz, s_mask, cfg.odometry.surf_map_leaf,
+    )
+
+
+class WindowSolveResult(NamedTuple):
+    H: torch.Tensor
+    g: torch.Tensor
+    cost: torch.Tensor
+    n_corner: torch.Tensor
+    n_surf: torch.Tensor
+    eig_min: torch.Tensor  # [O+1] per-opt-pose smallest Hessian eigenvalue
+    # contribution of the per-solve gauge anchor to (H, g) at the final
+    # linearization point. These rows are re-added fresh every solve, so they
+    # must be EXCLUDED from the marginalized Hessian: leaving them in re-bakes
+    # absolute-pose information into the prior every frame (double counting
+    # that grows without bound).
+    H_anchor: torch.Tensor
+    g_anchor: torch.Tensor
+    # [n_blocks, 6] full ascending per-block measurement eigenvalues
+    eig_blocks: torch.Tensor | None = None
+    # the marginalization prior's (H, g) contribution at the final
+    # linearization point
+    H_prior: torch.Tensor | None = None
+    g_prior: torch.Tensor | None = None
+    # [n_blocks] directions ACTUALLY frozen per block (trace deficit of the
+    # applied projector)
+    frozen: torch.Tensor | None = None
+    # [6] the shared-mean block spectrum the gate sees
+    eig_shared: torch.Tensor | None = None
+    # [6] its weakest eigvector (candidate frozen direction, up to sign)
+    weak_dir: torch.Tensor | None = None
+    # the projector of the armed persistence gate (None: gate not ported)
+    remap_P: torch.Tensor | None = None
+    support_neff: torch.Tensor | None = None
+
+
+def refuse_unported(cfg: MloamConfig, calibrate_ext: bool, analytic: bool):
+    oc = cfg.odometry
+    if calibrate_ext:
+        raise NotImplementedError(
+            "optimize_window(calibrate_ext=True): online extrinsic "
+            "calibration is not ported yet (ROADMAP A9)")
+    if not analytic:
+        raise NotImplementedError(
+            "optimize_window(analytic=False): only the closed-form "
+            "linearization is ported (ROADMAP A10)")
+    if oc.gf_ratio < 1.0:
+        raise NotImplementedError(
+            "odometry.gf_ratio < 1: good-feature selection is not ported yet "
+            "(ROADMAP A10)")
+    if oc.eig_threshold > 0:
+        raise NotImplementedError(
+            "odometry.eig_threshold > 0: the armed degeneracy gate is not "
+            "ported yet (ROADMAP A10)")
+    if oc.loss_mode != "huber":
+        raise NotImplementedError(
+            f"odometry.loss_mode={oc.loss_mode!r}: only 'huber' is ported in "
+            "the window solve (ROADMAP A10)")
+
+
+def optimize_window(state: WindowState, cfg: MloamConfig,
+                    calibrate_ext: bool = False,
+                    lidars: tuple[int, ...] | None = None,
+                    analytic: bool = True):
+    """Backend solve over poses pivot..newest with the marginalization prior.
+
+    The normal equations are assembled from closed-form point Jacobians
+    chained through the pose graph (per-chain 6x6 Gram blocks, then the chain
+    rule by adjoints). ``lidars`` restricts which lidars contribute
+    correspondences.
+
+    As in the JAX package the solve passes ``remap_threshold=0.0`` (not
+    ``None``) while the degeneracy gate is disarmed, so the projector and the
+    block spectra are built on every solve; a direction freezes only if an
+    f32 eigenvalue of the mean block comes out negative.
+
+    Returns (state with updated poses, WindowSolveResult).
+    """
+    refuse_unported(cfg, calibrate_ext, analytic)
+    oc = cfg.odometry
+    s = oc.window_size + 1
+    O = oc.opt_window_size
+    pivot = s - 1 - O          # opt poses are the tail: pivot + O + 1 == s
+    L = cfg.rig.n_lidars
+    n_opt = O + 1
+    dim = n_opt * 6
+    dev = state.poses.q.device
+    if lidars is None:
+        lidars = tuple(range(L))
+
+    c_map, c_mmask, s_map, s_mmask = build_local_map(state, cfg)
+    pivot_init = Pose(state.poses.q[pivot], state.poses.t[pivot])
+
+    # state under optimization: (poses [S], ext [L])
+    def opt_pose(x, i: int) -> Pose:
+        poses, _ = x
+        return Pose(poses.q[pivot + i], poses.t[pivot + i])
+
+    def ext_of(x, l: int) -> Pose:
+        _, ext = x
+        return Pose(ext.q[l], ext.t[l])
+
+    q_ids = [(f, l) for f in range(1, n_opt) for l in lidars]
+    nq = len(q_ids)
+
+    # all query frames share the same target map, so the per-frame
+    # correspondence searches batch into ONE k-NN call per feature class
+    # (queries concatenated along the point axis, per-point poses applied by
+    # repeat in the residual)
+    def gather_cat(stack: FeatCloud) -> FeatCloud:
+        return _tmap(lambda a: torch.cat([a[pivot + f, l] for f, l in q_ids]),
+                     stack)
+
+    qc_all = gather_cat(state.corner)
+    qs_all = gather_cat(state.surf)
+    n_c = state.corner.xyz.shape[2]
+    n_s = state.surf.xyz.shape[2]
+
+    f_idx = torch.tensor([pivot + f for f, _ in q_ids], device=dev)
+    l_idx = torch.tensor([l for _, l in q_ids], device=dev)
+
+    def chains(x):
+        """[nq] poses: pivot-base (map) frame <- lidar-l frame of opt frame f,
+        all query groups in one batched composition. The pivot pose is an
+        *optimized* parameter — every factor couples (pivot, frame), so
+        marginalizing the pivot transfers relative-pose information to the
+        retained frames. Returns (T [nq], E [nq])."""
+        poses, ext = x
+        Wp = opt_pose(x, 0)
+        Wf = Pose(poses.q[f_idx], poses.t[f_idx])
+        Ex = Pose(ext.q[l_idx], ext.t[l_idx])
+        Wp_inv = se3.inverse(Pose(Wp.q[None], Wp.t[None]))
+        return se3.compose(se3.compose(Wp_inv, Wf), Ex), Ex
+
+    def retract(x, dx: torch.Tensor):
+        # pure: builds new tensors (no write into the inputs), so it can sit
+        # under torch.func.jacfwd
+        poses, ext = x
+        new = [se3.boxplus(opt_pose(x, i), dx[i * 6:(i + 1) * 6])
+               for i in range(n_opt)]
+        q = torch.cat([poses.q[:pivot], torch.stack([p.q for p in new])])
+        t = torch.cat([poses.t[:pivot], torch.stack([p.t for p in new])])
+        return Pose(q, t), ext
+
+    def prior_delta(x):
+        poses, _ = x
+        return se3.boxminus(
+            Pose(poses.q[pivot:], poses.t[pivot:]),
+            Pose(state.prior_poses.q[pivot:], state.prior_poses.t[pivot:]),
+        ).reshape(-1)
+
+    def point_poses(T: Pose):
+        """Per-point chain poses for the concatenated query sets."""
+        return (
+            (T.q.repeat_interleave(n_c, 0), T.t.repeat_interleave(n_c, 0)),
+            (T.q.repeat_interleave(n_s, 0), T.t.repeat_interleave(n_s, 0)),
+        )
+
+    def small_residual(xx):
+        """Gauge anchor: the factor graph is purely relative (6-dim
+        nullspace); a weak absolute prior on the pivot at its pre-solve
+        estimate pins the gauge without biasing relative geometry. (The
+        marginalization prior enters the normal equations as a quadratic
+        form via gauss_newton's quad_prior — no rows here.)"""
+        return oc.gauge_weight * se3.boxminus(opt_pose(xx, 0), pivot_init)
+
+    def small_linearization(xx):
+        """(rows, Jacobian [6, dim]) of the gauge anchor. Only the pivot block
+        is non-zero, so forward-mode AD runs over the pivot's 6-dim tangent
+        alone — the same Jacobian as differentiating through ``retract`` over
+        the whole window tangent, at a fraction of the ops."""
+        piv = opt_pose(xx, 0)
+        zero = torch.zeros((6,), dtype=torch.float32, device=dev)
+        J6 = torch.func.jacfwd(
+            lambda d: oc.gauge_weight * se3.boxminus(se3.boxplus(piv, d), pivot_init)
+        )(zero)
+        Jsm = torch.cat([J6, torch.zeros((6, dim - 6), device=dev)], dim=1)
+        return small_residual(xx), Jsm
+
+    x = (state.poses, state.ext)
+    result = None
+    edge_corrs = plane_corrs = None
+
+    for _ in range(oc.outer_iters):
+        (cq, ct), (sq, st_) = point_poses(chains(x)[0])
+        proj_c = rot.quat_rotate(cq, qc_all.xyz) + ct
+        proj_s = rot.quat_rotate(sq, qs_all.xyz) + st_
+        edge_corrs = factors.match_map_edge(
+            qc_all, proj_c, c_map, c_mmask, oc.dist_sq_threshold)
+        plane_corrs = factors.match_map_plane(
+            qs_all, proj_s, s_map, s_mmask, oc.dist_sq_threshold)
+
+        def linearize_fn(xx):
+            """Closed-form normal equations: per-point analytic Jacobians
+            w.r.t. each chain pose's right tangent, per-chain 6x6 Gram
+            blocks, then the chain rule through the pose graph."""
+            ec, pc = edge_corrs, plane_corrs
+            T, Ex = chains(xx)
+            (cq, ct), (sq, st_) = point_poses(T)
+            re = factors.edge_residual(rot.quat_rotate(cq, ec.p) + ct, ec)
+            we = factors.robust_weights(
+                torch.sum(re * re, -1), ec.w, oc.loss_mode, oc.huber_delta,
+                gm_c=oc.gm_c)
+            rp = factors.plane_residual(rot.quat_rotate(sq, pc.p) + st_, pc)
+            wp = factors.robust_weights(rp * rp, pc.w, oc.loss_mode,
+                                        oc.huber_delta, gm_c=oc.gm_c)
+            Je = factors.edge_point_jacobian(cq, ec).reshape(nq, n_c, 3, 6)
+            Jp = factors.plane_point_jacobian(sq, pc).reshape(nq, n_s, 6)
+            we_g = we.reshape(nq, n_c)
+            re_g = re.reshape(nq, n_c, 3)
+            wp_g = wp.reshape(nq, n_s)
+            rp_g = rp.reshape(nq, n_s)
+            G = (torch.einsum("qnka,qn,qnkb->qab", Je, we_g, Je)
+                 + torch.einsum("qna,qn,qnb->qab", Jp, wp_g, Jp))
+            bq = (torch.einsum("qnka,qn,qnk->qa", Je, we_g, re_g)
+                  + torch.einsum("qna,qn->qa", Jp, wp_g * rp_g))
+
+            # chain rule through the pose graph, closed form: for
+            # T = Wp⁻¹∘Wf∘E under right perturbations,
+            #   dδ_T/dδ_pivot = −Ad(T⁻¹), dδ_T/dδ_f = Ad(E⁻¹)
+            # (X∘Exp(v) = Exp(Ad_X v)∘X conjugation identities).
+            A = torch.zeros((nq, 6, dim), device=dev)
+            A[:, :, 0:6] = -se3.adjoint(se3.inverse(T))
+            Ad_E = se3.adjoint(se3.inverse(Ex))
+            for qi, (f, _) in enumerate(q_ids):
+                A[qi, :, f * 6:(f + 1) * 6] = Ad_E[qi]
+            H = torch.einsum("qai,qab,qbj->ij", A, G, A)
+            g = torch.einsum("qai,qa->i", A, bq)
+            rsm, Jsm = small_linearization(xx)
+            H = H + Jsm.T @ Jsm
+            g = g + Jsm.T @ rsm
+            cost = 0.5 * (torch.sum(we * torch.sum(re * re, -1))
+                          + torch.sum(wp * rp * rp) + torch.sum(rsm * rsm))
+            return H, g, cost
+
+        st = gauss_newton(
+            None,
+            x,
+            retract,
+            dim=dim,
+            iters=oc.gn_iters,
+            remap_threshold=oc.eig_threshold,
+            remap_max_freeze=oc.remap_max_freeze,
+            remap_shared=oc.remap_shared,
+            remap_snap_purity=oc.eig_snap_purity,
+            quad_prior=(prior_delta, state.prior),
+            linearize_fn=linearize_fn,
+        )
+        x = st.x
+        result = st
+
+    # re-linearize the anchor/prior rows at the solve's final accepted state
+    # (result.x == result.H's linearization point) so marginalize_pivot can
+    # subtract them exactly — see WindowSolveResult.H_anchor.
+    rsm, Jsm = small_linearization(result.x)
+    H_anchor = Jsm.T @ Jsm
+    g_anchor = Jsm.T @ rsm
+    val = state.prior.valid.to(torch.float32)
+    Hq = state.prior.H * val
+    g_prior = val * state.prior.b + Hq @ prior_delta(result.x)
+
+    poses, ext = result.x
+    solve = WindowSolveResult(
+        H=result.H,
+        g=result.g,
+        cost=result.cost,
+        n_corner=torch.sum(edge_corrs.w > 0),
+        n_surf=torch.sum(plane_corrs.w > 0),
+        eig_min=result.eig0[:, 0],
+        H_anchor=H_anchor,
+        g_anchor=g_anchor,
+        eig_blocks=result.eig0,
+        H_prior=Hq,
+        g_prior=g_prior,
+        frozen=result.frozen,
+        eig_shared=result.eig_shared,
+        weak_dir=result.weak_dir,
+        remap_P=None,
+        support_neff=None,
+    )
+    return state._replace(poses=poses, ext=ext), solve
+
+
+def marginalize_pivot(state: WindowState, solve: WindowSolveResult,
+                      cfg: MloamConfig, calibrate_ext: bool = False) -> WindowState:
+    """Schur-eliminate the pivot block of the final (H, g) into a prior over
+    the remaining opt poses; re-linearize at the current estimates. The new
+    frame pushed next step enters with a zero prior block."""
+    if calibrate_ext:
+        raise NotImplementedError(
+            "marginalize_pivot(calibrate_ext=True): online extrinsic "
+            "calibration is not ported yet (ROADMAP A9)")
+    if cfg.odometry.eig_threshold > 0:
+        raise NotImplementedError(
+            "odometry.eig_threshold > 0: degeneracy-consistent "
+            "marginalization is not ported yet (ROADMAP A10)")
+    O = cfg.odometry.opt_window_size
+    dim = prior_dim(cfg, calibrate_ext)
+    dev = solve.H.device
+    # marginalize only the factor blocks + old prior: the per-solve gauge
+    # anchor rows are re-added fresh every solve and must not be re-baked
+    # into the prior (see WindowSolveResult.H_anchor)
+    H_in = solve.H - solve.H_anchor
+    g_in = solve.g - solve.g_anchor
+    small = schur_marginalize_quad(H_in, g_in, n_drop=6)
+    # retained layout after the slide: [poses 0..O-1], new pose block O is
+    # zero. Old retained layout: [poses 1..O].
+    k = O * 6
+    Hp = torch.zeros((dim, dim), device=dev)
+    Hp[:k, :k] = small.H
+    b = torch.zeros((dim,), device=dev)
+    b[:k] = small.b
+    return state._replace(
+        prior=QuadPrior(H=Hp, b=b, valid=small.valid),
+        # clones: the window is rolled and written in place on the next
+        # push, the linearization points must not move with it
+        prior_poses=_tmap(torch.clone, state.poses),
+        prior_ext=_tmap(torch.clone, state.ext),
+    )
+
+
+def drop_prior(state: WindowState, cfg: MloamConfig) -> WindowState:
+    """Discard the marginalization prior."""
+    dim = (cfg.odometry.opt_window_size + 1) * 6
+    return state._replace(
+        prior=QuadPrior.empty(dim, device=state.poses.q.device))

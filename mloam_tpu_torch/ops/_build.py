@@ -1,0 +1,101 @@
+"""The one place that builds and loads the hand-written CUDA kernels.
+
+``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a`` into shared libraries
+with a plain C interface (no PyTorch headers, so a build takes seconds) under
+``mloam_tpu_torch/_build/``, at first use, keyed by a hash of the sources, and
+loaded with ``ctypes``. One ``nvcc`` process per source, all started together.
+A failed build raises; nothing here falls back to anything.
+
+Nothing in this module runs at import: machines without ``nvcc`` import the
+package and use the plain versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked at $NVCC, PATH and /usr/local/cuda/bin): the "
+        "CUDA kernels of mloam_tpu_torch cannot be built on this machine")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(verbose: bool = False) -> dict[str, Path]:
+    """Build every kernel source that has no up-to-date library yet; all
+    compilers run in parallel. Returns {stem: library path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, []
+    for src in sources():
+        lib = _lib_path(src)
+        out[src.stem] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), str(src)]
+        procs.append((src, lib, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for src, lib, tmp, cmd, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{log}")
+            continue
+        if verbose and log:
+            print(log, flush=True)
+        os.replace(tmp, lib)  # atomic publish: no half-written library is loaded
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return out
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built first if needed."""
+    lib = _libs.get(stem)
+    if lib is None:
+        paths = build_all()
+        if stem not in paths:
+            raise RuntimeError(f"no kernel source csrc/{stem}.cu")
+        lib = ctypes.CDLL(str(paths[stem]))
+        _libs[stem] = lib
+    return lib
+
+
+def check(err: int, what: str):
+    """Raise if a C entry returned a CUDA error code from its launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")

@@ -1,0 +1,126 @@
+"""Connected-component label propagation on the range image: the hand-written
+CUDA kernel (``csrc/labels.cu``) and its plain PyTorch version.
+
+Replaces the TPU kernel ``mloam_tpu/ops/pallas_labels.py:_label_kernel``
+(entry ``propagate_labels_pallas``), same contract:
+
+  labels  int32 [R, C], linear pixel index; non-clusterable cells = R*C
+  conn_h  bool [R, C]: column c connected to c-1; ``conn_h[:, 0]`` carries the
+          azimuth wrap flag (C-1 <-> 0)
+  conn_v  bool [R, C]: row r connected to r-1 (row 0 is ignored)
+  round   = row segmented-min over runs -> seam stitch -> row segmented-min
+            again -> column segmented-min
+
+Bound on the H100: the image is a few hundred KB, so the bytes are well under
+a microsecond of memory time and the cost is launch latency. The kernel side
+therefore does each round in two launches (everything per-row in one, the
+column pass in the other: ``2 * rounds`` launches per call) instead of the
+dozens of small ops of the plain version. See the note in ``csrc/labels.cu``.
+
+On a CUDA tensor ``propagate_labels`` launches the kernel or raises; the plain
+version runs only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mloam_tpu_torch.ops import _build
+
+launches = 0  # kernel launches made by propagate_labels(), as the C entry counted them
+
+_MAX_SMEM = 232448  # bytes of shared memory a block can use on sm_90
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = _build.load("labels").mloam_propagate_labels
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check_args(labels, conn_h, conn_v, rounds):
+    if labels.ndim != 2 or labels.dtype != torch.int32:
+        raise TypeError("labels must be an int32 [R, C] tensor")
+    for name, t in (("conn_h", conn_h), ("conn_v", conn_v)):
+        if t.dtype != torch.bool or t.shape != labels.shape:
+            raise TypeError(f"{name} must be a bool tensor of labels' shape")
+        if t.device != labels.device:
+            raise ValueError(f"{name} must lie on labels' device")
+    if not isinstance(rounds, int) or rounds < 1:
+        raise ValueError("rounds must be a positive int")
+
+
+def _runs_min(lab: torch.Tensor, key: torch.Tensor, big: int) -> torch.Tensor:
+    """Min of ``lab`` over cells sharing ``key`` (both flat), gathered back."""
+    runmin = torch.full_like(lab, big)
+    runmin.scatter_reduce_(0, key, lab, "amin", include_self=True)
+    return runmin[key]
+
+
+def propagate_labels_plain(labels: torch.Tensor, conn_h: torch.Tensor,
+                           conn_v: torch.Tensor, rounds: int = 3) -> torch.Tensor:
+    """The kernel's round structure in torch ops. A segmented min over runs is
+    a ``cummax`` of run-start positions (the run key) followed by a
+    scatter-min into the key's slot and a gather back."""
+    _check_args(labels, conn_h, conn_v, rounds)
+    r, c = labels.shape
+    dev = labels.device
+    big = r * c
+    col = torch.arange(c, device=dev).expand(r, c)
+    row = torch.arange(r, device=dev)[:, None].expand(r, c)
+    # column 0 / row 0 always start a run
+    head_h = (~conn_h) | (col == 0)
+    head_v = (~conn_v) | (row == 0)
+    start_h = torch.cummax(torch.where(head_h, col, 0), dim=1).values
+    start_v = torch.cummax(torch.where(head_v, row, 0), dim=0).values
+    key_h = (row * c + start_h).reshape(-1)
+    key_v = (start_v * c + col).reshape(-1)
+    wrap = conn_h[:, 0]
+
+    lab = labels.reshape(-1).clone()
+    for _ in range(rounds):
+        lab = _runs_min(lab, key_h, big)
+        l2 = lab.reshape(r, c)
+        m = torch.minimum(l2[:, 0], l2[:, c - 1])
+        l2 = l2.clone()
+        l2[:, 0] = torch.where(wrap, m, l2[:, 0])
+        l2[:, c - 1] = torch.where(wrap, m, l2[:, c - 1])
+        lab = _runs_min(l2.reshape(-1), key_h, big)
+        lab = _runs_min(lab, key_v, big)
+    return lab.reshape(r, c)
+
+
+def propagate_labels(labels: torch.Tensor, conn_h: torch.Tensor,
+                     conn_v: torch.Tensor, rounds: int = 3) -> torch.Tensor:
+    """``rounds`` rounds of label propagation; returns int32 [R, C]."""
+    if not labels.is_cuda:
+        return propagate_labels_plain(labels, conn_h, conn_v, rounds)
+    global launches
+    _check_args(labels, conn_h, conn_v, rounds)
+    r, c = labels.shape
+    if 3 * c * 4 > _MAX_SMEM:
+        raise ValueError(f"row of {c} columns does not fit a block's shared memory")
+    labels = labels.contiguous()
+    conn_h = conn_h.contiguous()
+    conn_v = conn_v.contiguous()
+    out = torch.empty_like(labels)
+    fn = _kernel_fn()
+    n_launched = ctypes.c_int(0)
+    with torch.cuda.device(labels.device):
+        err = fn(labels.data_ptr(), conn_h.data_ptr(), conn_v.data_ptr(),
+                 out.data_ptr(), r, c, rounds,
+                 torch.cuda.current_stream().cuda_stream,
+                 ctypes.byref(n_launched))
+    launches += n_launched.value
+    _build.check(err, "propagate_labels")
+    return out

@@ -1,0 +1,103 @@
+"""Masked selection primitives: top-k under masks, sort-free compaction.
+
+These back the feature-extraction picking rules (per-ring sectors, bounded
+picks by curvature) and the fixed-capacity compaction of sparse stacks.
+Counterpart of ``mloam_tpu/ops/select.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_BIG = -1e30
+BIG = 1e30
+
+
+def top_k_lowest_index(scores: torch.Tensor, k: int):
+    """Largest-k along the last axis with ties broken by LOWEST index (the
+    order ``lax.top_k`` promises and ``torch.topk`` does not): a stable
+    descending sort, cut at k. The rows this is used on are short (one
+    sector of one ring)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """Largest-k scores among masked entries.
+
+    Returns (values [.., k], idx [.., k], valid [.., k]). Invalid slots carry
+    NEG_BIG values.
+    """
+    s = torch.where(mask, scores, NEG_BIG)
+    vals, idx = top_k_lowest_index(s, k)
+    return vals, idx, vals > NEG_BIG / 2
+
+
+def masked_bottom_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    vals, idx, valid = masked_top_k(-scores, mask, k)
+    return -vals, idx, valid
+
+
+def _even_stride(ar: torch.Tensor, num: torch.Tensor, cap: int) -> torch.Tensor:
+    """floor(ar * num / cap) in exact integer arithmetic (int64: the product
+    stays far below 2^63 for any capacity in use)."""
+    return (ar * num) // cap
+
+
+def _compaction_plan(mask: torch.Tensor, cap: int):
+    """(dest [N] scatter slot per row with N as the sink, sel [cap] rows of
+    the compacted order to keep, out_mask [cap])."""
+    n = mask.shape[0]
+    m = mask.to(torch.int64)
+    rank = torch.cumsum(m, 0) - 1
+    dest = torch.where(mask, rank, n)  # slot n is a sink, sliced off below
+    num = torch.sum(m)
+    ar = torch.arange(cap, dtype=torch.int64, device=mask.device)
+    sel = torch.where(num <= cap, ar, _even_stride(ar, num, cap))
+    out_mask = ar < torch.clamp(num, max=cap)
+    return dest, sel, out_mask
+
+
+def compact_stride(values: torch.Tensor, mask: torch.Tensor, cap: int,
+                   fill=0.0):
+    """[N, ...] -> ([cap, ...], mask [cap]) without any sort.
+
+    Valid rows are scattered to the front by their cumsum rank (stable), and
+    when more than ``cap`` are valid an even stride over the compacted rows
+    is taken. Invalid rows go to a sink slot one past the end (an ``n+1``
+    buffer, sliced): a CUDA scatter must stay in range.
+    """
+    n = mask.shape[0]
+    dest, sel, out_mask = _compaction_plan(mask, cap)
+    buf = torch.full((n + 1,) + values.shape[1:], fill, dtype=values.dtype,
+                     device=values.device)
+    buf[dest] = values
+    shape = (cap,) + (1,) * (values.ndim - 1)
+    picked = buf[:n][torch.clamp(sel, max=n - 1)]
+    return torch.where(out_mask.reshape(shape), picked, fill), out_mask
+
+
+def compact_gather_indices(mask: torch.Tensor, cap: int):
+    """Gather plan for compaction: (src_idx [cap] int64, out_mask [cap]).
+
+    Gathering any [N, ...] tensor with ``src_idx`` (and masking rows by
+    ``out_mask``) yields the first-``cap`` valid rows front-compacted by
+    rank; when more than ``cap`` rows are valid, an even stride over the
+    compacted order is taken (same semantics as :func:`compact_stride`).
+    """
+    n = mask.shape[0]
+    dest, sel, out_mask = _compaction_plan(mask, cap)
+    src = torch.zeros((n + 1,), dtype=torch.int64, device=mask.device)
+    src[dest] = torch.arange(n, dtype=torch.int64, device=mask.device)
+    return src[:n][torch.clamp(sel, 0, n - 1)], out_mask
+
+
+def compact_by_mask(values: torch.Tensor, mask: torch.Tensor, fill=0.0):
+    """Stable-compact masked rows to the front; returns (values, new_mask)."""
+    n = mask.shape[0]
+    ar = torch.arange(n, dtype=torch.int64, device=mask.device)
+    order = torch.argsort(torch.where(mask, ar, n + ar), stable=True)
+    out = values[order]
+    new_mask = mask[order]
+    shape = (n,) + (1,) * (values.ndim - 1)
+    return torch.where(new_mask.reshape(shape), out, fill), new_mask

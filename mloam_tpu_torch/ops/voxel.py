@@ -1,0 +1,170 @@
+"""Voxel-grid ops as sort + segment reductions (exact, statically shaped).
+
+Replacements for PCL voxel filters: plain centroid downsampling, used in
+feature extraction and local-map assembly. (The uncertainty-weighted filter
+of the mapper is not ported yet.) Counterpart of ``mloam_tpu/ops/voxel.py``.
+
+Design: no kd-trees, no dynamic shapes. Points are keyed by their integer
+voxel coordinate, sorted (stable, so the order inside a voxel is the input
+order), reduced with segment heads, and compacted into a fixed-capacity
+output with a validity mask. Invalid points sort to the tail via a
+valid-first sort key.
+
+On a CUDA device the segment sums are ``index_add_`` with atomics, so a
+centroid's last bits can change from run to run.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_SENTINEL = 2 ** 30
+
+
+def voxel_coords(xyz: torch.Tensor, leaf: float) -> torch.Tensor:
+    """Integer voxel coordinate per point, [N, 3] int64."""
+    return torch.floor(xyz / leaf).to(torch.int64)
+
+
+class VoxelReduction(NamedTuple):
+    """Result of a voxel reduction, compacted to the input capacity.
+
+    ``order`` and ``seg_id`` allow callers to push extra per-point payloads
+    through the same reduction (segment-sum with the same ids).
+    """
+
+    num_voxels: torch.Tensor      # scalar int64
+    mask: torch.Tensor            # [N] True for the first num_voxels slots
+    order: torch.Tensor           # [N] permutation sorting points by key
+    seg_id: torch.Tensor          # [N] voxel slot id per *sorted* point
+    sorted_valid: torch.Tensor    # [N] validity per sorted point
+
+
+def _rel_coords(ijk: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Coordinates re-based to the valid minimum, clamped to 10 bits/axis."""
+    base = torch.min(torch.where(valid[:, None], ijk, _SENTINEL), dim=0).values
+    return torch.clamp(ijk - base[None], 0, 1023)
+
+
+def _reduction_from_sorted(order, valid, differs) -> VoxelReduction:
+    head = torch.cat([valid[:1], differs & valid[1:]])
+    h = head.to(torch.int64)
+    seg_id = torch.clamp(torch.cumsum(h, 0) - 1, min=0)
+    num = torch.sum(h)
+    n = order.shape[0]
+    out_mask = torch.arange(n, dtype=torch.int64, device=order.device) < num
+    return VoxelReduction(num, out_mask, order, seg_id, valid)
+
+
+def voxel_reduce(ijk: torch.Tensor, valid_in: torch.Tensor,
+                 packed: bool = False) -> VoxelReduction:
+    """Group points by integer voxel coordinate; all shapes static.
+
+    ``packed=False``: exact lexicographic sort (4 stable sort passes) —
+    unbounded coordinate range, used for map-scale reductions.
+    ``packed=True``: coordinates are re-based to their minimum and packed
+    into one key (10 bits/axis, grid up to 1024³ cells) — a single sort
+    pass. Out-of-grid cells clamp to the boundary (only relevant beyond
+    1024 cells span, i.e. >200 m at 0.2 m leaf).
+    """
+    if packed:
+        rel = _rel_coords(ijk, valid_in)
+        key = (rel[:, 0] << 20) | (rel[:, 1] << 10) | rel[:, 2]
+        key = torch.where(valid_in, key, _SENTINEL)
+        order = torch.argsort(key, stable=True)
+        sorted_key = key[order]
+        valid = valid_in[order]
+        differs = sorted_key[1:] != sorted_key[:-1]
+    else:
+        # lexsort, least-significant key first, each pass stable
+        order = torch.arange(ijk.shape[0], dtype=torch.int64, device=ijk.device)
+        for k in (ijk[:, 2], ijk[:, 1], ijk[:, 0], (~valid_in).to(torch.int64)):
+            order = order[torch.argsort(k[order], stable=True)]
+        sk = ijk[order]
+        valid = valid_in[order]
+        differs = torch.any(sk[1:] != sk[:-1], dim=-1)
+    return _reduction_from_sorted(order, valid, differs)
+
+
+def _tail(values: torch.Tensor):
+    return (values.shape[0],) + (1,) * (values.ndim - 1)
+
+
+def segment_mean(values: torch.Tensor, red: VoxelReduction,
+                 weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted mean of per-point payload over voxels.
+
+    values: [N, ...] in *original* order; returns [N, ...] compacted (valid in
+    the first num_voxels rows).
+    """
+    n = values.shape[0]
+    v = values[red.order]
+    w = (torch.ones((n,), dtype=values.dtype, device=values.device)
+         if weights is None else weights[red.order])
+    w = torch.where(red.sorted_valid, w, 0.0)
+    wv = v * w.reshape(_tail(values))
+    sums = torch.zeros_like(values).index_add_(0, red.seg_id, wv)
+    wsum = torch.zeros((n,), dtype=values.dtype,
+                       device=values.device).index_add_(0, red.seg_id, w)
+    return sums / torch.clamp(wsum, min=1e-12).reshape(_tail(values))
+
+
+def segment_sum(values: torch.Tensor, red: VoxelReduction) -> torch.Tensor:
+    v = values[red.order]
+    v = torch.where(red.sorted_valid.reshape(_tail(values)), v, 0.0)
+    return torch.zeros_like(values).index_add_(0, red.seg_id, v)
+
+
+def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
+                     payload: torch.Tensor | None = None,
+                     packed: bool = False):
+    """Centroid voxel filter. Returns (xyz_ds [N,3], mask_ds [N], payload_ds)."""
+    red = voxel_reduce(voxel_coords(xyz, leaf), mask, packed=packed)
+    out_xyz = segment_mean(xyz, red)
+    out_payload = None if payload is None else segment_mean(payload, red)
+    return out_xyz, red.mask, out_payload
+
+
+def voxel_downsample_two_class(
+    xyz_a: torch.Tensor, mask_a: torch.Tensor, leaf_a: float,
+    xyz_b: torch.Tensor, mask_b: torch.Tensor, leaf_b: float,
+):
+    """Fused centroid filter over two point classes with ONE sort pass.
+
+    The window local map needs corner and surf clouds filtered at different
+    leaves; sorting them together (class in the key's high bit, 10 bits/axis
+    re-based per class) halves the number of sorts per sweep. Class-a voxels
+    sort first, so class-b output is a slice starting at a's voxel count —
+    taken as a gather, so the count never leaves the device.
+
+    Returns (xyz_a_ds, mask_a_ds, xyz_b_ds, mask_b_ds), each input-capacity.
+    """
+    na, nb = xyz_a.shape[0], xyz_b.shape[0]
+    dev = xyz_a.device
+    ra = _rel_coords(voxel_coords(xyz_a, leaf_a), mask_a)
+    rb = _rel_coords(voxel_coords(xyz_b, leaf_b), mask_b)
+    rel = torch.cat([ra, rb])
+    cls = torch.cat([
+        torch.zeros((na,), dtype=torch.int64, device=dev),
+        torch.ones((nb,), dtype=torch.int64, device=dev),
+    ])
+    valid_in = torch.cat([mask_a, mask_b])
+    key = (cls << 30) | (rel[:, 0] << 20) | (rel[:, 1] << 10) | rel[:, 2]
+    key = torch.where(valid_in, key, 0x7FFFFFFF)
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    valid = valid_in[order]
+    differs = sorted_key[1:] != sorted_key[:-1]
+    red = _reduction_from_sorted(order, valid, differs)
+    out = segment_mean(torch.cat([xyz_a, xyz_b]), red)
+    head = torch.cat([valid[:1], differs & valid[1:]])
+    n_a = torch.sum((head & (sorted_key < (1 << 30))).to(torch.int64))
+    n_b = red.num_voxels - n_a
+    xyz_a_ds = out[:na]
+    mask_a_ds = torch.arange(na, dtype=torch.int64, device=dev) < n_a
+    ar_b = torch.arange(nb, dtype=torch.int64, device=dev)
+    xyz_b_ds = out[n_a + ar_b]  # n_a <= na, so always in range
+    mask_b_ds = ar_b < n_b
+    return xyz_a_ds, mask_a_ds, xyz_b_ds, mask_b_ds

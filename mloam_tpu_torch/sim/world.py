@@ -1,0 +1,251 @@
+"""Synthetic LiDAR world: analytic ray-casting against plane/cylinder
+primitives along a smooth trajectory.
+
+The deterministic replay fixture: every end-to-end gate runs against
+sequences rendered here, with exact ground truth and exact per-point sweep
+timing. Counterpart of ``mloam_tpu/sim/world.py`` (companion objects, movers,
+range noise and the corridor / loop courses are not ported yet).
+
+The world is built from finite rectangles (ground, building walls) and
+vertical cylinders (poles, trunks) — structure that exercises both LOAM
+feature classes. Scans are rendered with intra-sweep motion distortion: each
+azimuth column is ray-cast from the interpolated sensor pose at its firing
+time, and ranges are reported in the sensor frame at that time — exactly what
+a spinning LiDAR measures.
+
+Worlds and trajectories are drawn from a ``torch.Generator``; the same seed
+does not give the JAX package's world (different generators). To compare the
+two packages, carry the JAX ``World``/``Trajectory`` across as numpy
+(``utils/convert``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mloam_tpu_torch import resolve_device
+from mloam_tpu_torch.core import rotations as rot
+from mloam_tpu_torch.core import se3
+from mloam_tpu_torch.core.rangeimage import (LidarModel, RangeImage, from_grid,
+                                             unit_rays)
+from mloam_tpu_torch.core.rotations import _cross
+from mloam_tpu_torch.core.se3 import Pose
+
+_BIG = 1e9
+
+
+class World(NamedTuple):
+    rect_center: torch.Tensor  # [P, 3]
+    rect_u: torch.Tensor       # [P, 3] half-extent vector 1
+    rect_v: torch.Tensor       # [P, 3] half-extent vector 2
+    rect_mask: torch.Tensor    # [P]
+    cyl_xyr: torch.Tensor      # [Q, 3] center x, y, radius
+    cyl_z: torch.Tensor        # [Q, 2] zmin, zmax
+    cyl_mask: torch.Tensor     # [Q]
+
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
+    """Uniform draw on the CPU from ``gen`` (the same world on any device)."""
+    return lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=torch.float32)
+
+
+def make_world(
+    generator: torch.Generator,
+    extent: float = 40.0,
+    n_walls: int = 24,
+    n_poles: int = 12,
+    wall_height: float = 4.0,
+    device=None,
+) -> World:
+    """Random structured world: big ground plane, vertical walls at random
+    yaw, vertical poles. Deterministic in the generator's state."""
+    device = resolve_device(device)
+    g = generator
+    ground_c = torch.tensor([[0.0, 0.0, 0.0]])
+    ground_u = torch.tensor([[extent * 2.0, 0.0, 0.0]])
+    ground_v = torch.tensor([[0.0, extent * 2.0, 0.0]])
+
+    # walls: random center (ring between 6 and extent), random yaw, random len
+    r = _uniform(g, (n_walls,), 6.0, extent)
+    ang = _uniform(g, (n_walls,), -math.pi, math.pi)
+    yaw = _uniform(g, (n_walls,), -math.pi, math.pi)
+    half_len = _uniform(g, (n_walls,), 2.0, 8.0)
+    zeros = torch.zeros(n_walls)
+    half_h = torch.full((n_walls,), wall_height / 2)
+    wc = torch.stack([r * torch.cos(ang), r * torch.sin(ang), half_h], -1)
+    wu = torch.stack([half_len * torch.cos(yaw), half_len * torch.sin(yaw), zeros], -1)
+    wv = torch.stack([zeros, zeros, half_h], -1)
+
+    rect_c = torch.cat([ground_c, wc])
+    rect_u = torch.cat([ground_u, wu])
+    rect_v = torch.cat([ground_v, wv])
+
+    pr = _uniform(g, (n_poles,), 4.0, extent * 0.8)
+    pang = _uniform(g, (n_poles,), -math.pi, math.pi)
+    cyl_xyr = torch.stack(
+        [pr * torch.cos(pang), pr * torch.sin(pang), torch.full((n_poles,), 0.25)], -1)
+    cyl_z = torch.tensor([0.0, 5.0]).expand(n_poles, 2).clone()
+    w = World(rect_c, rect_u, rect_v, torch.ones(rect_c.shape[0], dtype=torch.bool),
+              cyl_xyr, cyl_z, torch.ones(n_poles, dtype=torch.bool))
+    return World(*(x.to(device) for x in w))
+
+
+def _raycast_rects(world: World, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Min positive hit distance against all rectangles. o,d: [N,3] -> [N]."""
+    c, u, v = world.rect_center, world.rect_u, world.rect_v
+    n = _cross(u, v)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-9)
+    # t = (c - o)·n / d·n   per (ray, rect)
+    denom = d @ n.T
+    numer = torch.sum(c * n, -1)[None, :] - o @ n.T
+    t = numer / torch.where(torch.abs(denom) < 1e-9, torch.inf, denom)
+    hit = o[:, None, :] + t[..., None] * d[:, None, :] - c[None, :, :]
+    ulen2 = torch.sum(u * u, -1)
+    vlen2 = torch.sum(v * v, -1)
+    pu = torch.sum(hit * u[None], -1)
+    pv = torch.sum(hit * v[None], -1)
+    inside = (torch.abs(pu) <= ulen2[None, :]) & (torch.abs(pv) <= vlen2[None, :])
+    ok = inside & (t > 0.05) & world.rect_mask[None, :]
+    return torch.min(torch.where(ok, t, _BIG), dim=1).values
+
+
+def _raycast_cyls(world: World, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Min positive hit distance against vertical cylinders. [N,3] -> [N]."""
+    cxy = world.cyl_xyr[:, :2]
+    rad = world.cyl_xyr[:, 2]
+    oxy = o[:, None, :2] - cxy[None, :, :]
+    dxy = d[:, None, :2]
+    a = torch.sum(dxy * dxy, -1)
+    b = 2.0 * torch.sum(oxy * dxy, -1)
+    cc = torch.sum(oxy * oxy, -1) - (rad ** 2)[None, :]
+    disc = b * b - 4 * a * cc
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(torch.abs(a) < 1e-12, 1e-12, a)
+    t0 = (-b - sq) / (2 * a_safe)
+    t1 = (-b + sq) / (2 * a_safe)
+    t = torch.where(t0 > 0.05, t0, t1)
+    z = o[:, None, 2] + t * d[:, None, 2]
+    ok = (
+        (disc > 0)
+        & (t > 0.05)
+        & (z >= world.cyl_z[None, :, 0])
+        & (z <= world.cyl_z[None, :, 1])
+        & world.cyl_mask[None, :]
+    )
+    return torch.min(torch.where(ok, t, _BIG), dim=1).values
+
+
+def raycast(world: World, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """[N] min positive range, _BIG where no hit."""
+    return torch.minimum(_raycast_rects(world, o, d), _raycast_cyls(world, o, d))
+
+
+def sensor_rays(model: LidarModel, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[R, C, 3] unit ray directions in the sensor frame (the canonical table
+    of core.rangeimage.unit_rays; the simulator casts along it, which makes
+    the PackedFrame wire format exactly lossless on sim data)."""
+    return unit_rays(model, dtype, device)
+
+
+def render_scan(
+    world: World,
+    pose_start: Pose,
+    pose_end: Pose,
+    model: LidarModel,
+) -> RangeImage:
+    """Render one distorted sweep.
+
+    Column j fires at s = j/C into the sweep, from pose interp(start, end, s);
+    the returned xyz is in the *sensor frame at firing time* (what the device
+    measures), gridded [R, C].
+    """
+    r, c = model.n_rings, model.n_cols
+    dev = world.rect_center.device
+    dirs_s = sensor_rays(model, device=dev)  # [R, C, 3]
+    s = (torch.arange(c, dtype=torch.float32, device=dev) + 0.5) / c
+    pose_cols = se3.interpolate(
+        Pose(pose_start.q.expand(c, 4), pose_start.t.expand(c, 3)),
+        Pose(pose_end.q.expand(c, 4), pose_end.t.expand(c, 3)),
+        s,
+    )
+    d_world = rot.quat_rotate(pose_cols.q[None, :, :], dirs_s)  # [R, C, 3]
+    o_world = pose_cols.t[None, :, :].expand(r, c, 3)
+    t_hit = raycast(world, o_world.reshape(-1, 3), d_world.reshape(-1, 3))
+    t_hit = t_hit.reshape(r, c)
+    valid = (t_hit < model.max_range) & (t_hit > model.min_range)
+    xyz = torch.where(valid[..., None], t_hit[..., None] * dirs_s, 0.0)
+    return from_grid(xyz, valid)
+
+
+class Trajectory(NamedTuple):
+    """Smooth parametric trajectory: position/yaw as sums of sinusoids,
+    optional roll/pitch wobble."""
+
+    amp: torch.Tensor    # [K, 3] xyz amplitudes
+    freq: torch.Tensor   # [K] rad/s
+    phase: torch.Tensor  # [K, 3]
+    yaw_rate: float
+    wobble: float        # roll/pitch amplitude (rad); 0 = planar
+
+    def pose(self, t) -> Pose:
+        t = torch.as_tensor(t, dtype=torch.float32, device=self.amp.device)
+        arg = self.freq[:, None] * t[..., None, None] + self.phase
+        pos = torch.sum(self.amp * torch.sin(arg), dim=-2)
+        z = 0.6 + 0.05 * torch.sum(torch.sin(arg[..., 2]), -1)
+        pos = torch.cat([pos[..., :2], z[..., None]], -1)
+        yaw = self.yaw_rate * t
+        roll = self.wobble * torch.sin(1.7 * t + 0.3)
+        pitch = self.wobble * torch.sin(2.3 * t + 1.1)
+        zero = torch.zeros_like(yaw)
+        q_yaw = rot.so3_exp_quat(torch.stack([zero, zero, yaw], -1))
+        q_rp = rot.so3_exp_quat(torch.stack([roll, pitch, zero], -1))
+        return Pose(rot.quat_multiply(q_yaw, q_rp), pos)
+
+
+def make_trajectory(generator: torch.Generator, speed_scale: float = 1.0,
+                    wobble: float = 0.0, device=None) -> Trajectory:
+    device = resolve_device(device)
+    amp = torch.tensor([[6.0, 4.0, 0.3], [1.5, 2.0, 0.2], [0.4, 0.3, 0.1]]) * speed_scale
+    freq = torch.tensor([0.11, 0.31, 0.83])
+    phase = _uniform(generator, (3, 3), 0.0, 2 * math.pi)
+    yaw_rate = float(0.25 * speed_scale)
+    return Trajectory(amp.to(device), freq.to(device), phase.to(device),
+                      yaw_rate, wobble)
+
+
+def render_sequence(
+    world: World,
+    traj: Trajectory,
+    model: LidarModel,
+    n_frames: int,
+    extrinsic: Pose | None = None,
+    t0: float = 0.0,
+    device=None,
+):
+    """Render n_frames sweeps for one lidar mounted at ``extrinsic``
+    (base <- lidar), on ``device`` (the GPU unless the caller passes
+    another). Returns (RangeImage stacked [F, ...], gt base poses Pose[F] at
+    sweep starts)."""
+    device = resolve_device(device)
+    world = World(*(x.to(device) for x in world))
+    traj = traj._replace(amp=traj.amp.to(device), freq=traj.freq.to(device),
+                         phase=traj.phase.to(device))
+    if extrinsic is None:
+        extrinsic = Pose.identity(device=device)
+    dt = model.scan_period
+    imgs, poses = [], []
+    with torch.no_grad():
+        for i in range(n_frames):
+            ts = t0 + i * dt
+            base0 = traj.pose(ts)
+            base1 = traj.pose(ts + dt)
+            p0 = se3.compose(base0, extrinsic)
+            p1 = se3.compose(base1, extrinsic)
+            imgs.append(render_scan(world, p0, p1, model))
+            poses.append(base0)
+    stacked = RangeImage(*(torch.stack(x) for x in zip(*imgs)))
+    gt = Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))
+    return stacked, gt

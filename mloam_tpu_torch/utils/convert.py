@@ -1,0 +1,126 @@
+"""State carried across from the JAX package, through numpy.
+
+The system has no learned weights; what both packages share is configuration
+and state. Every function here takes the leaves of the JAX package's
+container **as numpy arrays** (a caller does
+``jax.tree.map(np.asarray, x)``; this package never sees a JAX type) and
+returns this package's container on a given device. ``to_numpy`` is the
+inverse, for comparisons.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mloam_tpu_torch import config as C
+from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage
+from mloam_tpu_torch.core.se3 import Pose
+from mloam_tpu_torch.frontend.features import FeatCloud, FeatureFrame
+from mloam_tpu_torch.odometry.estimator import WindowState
+from mloam_tpu_torch.sim.world import Trajectory, World
+from mloam_tpu_torch.solver.marginalization import QuadPrior
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if dtype is None:
+        dtype = {"f": torch.float32, "i": torch.int32, "u": torch.int32,
+                 "b": torch.bool}[a.dtype.kind]
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+
+def config_from_reference(d: dict) -> C.MloamConfig:
+    """Rebuild the config tree from ``dataclasses.asdict`` of the JAX
+    package's ``MloamConfig``."""
+    def build(cls, vals):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in vals:
+                continue
+            kw[f.name] = vals[f.name]
+        return cls(**kw)
+
+    rig = d["rig"]
+    models = tuple(
+        LidarModel(**m) if isinstance(m, dict) else LidarModel(*m)
+        for m in rig["models"])
+    sub = {
+        "segmenter": C.SegmenterConfig, "features": C.FeatureConfig,
+        "tracker": C.TrackerConfig, "odometry": C.OdometryConfig,
+        "calib": C.CalibConfig, "mapping": C.MappingConfig,
+        "loop": C.LoopConfig,
+    }
+    return C.MloamConfig(
+        rig=C.LidarRig(models=models, extrinsic_mode=rig["extrinsic_mode"]),
+        **{k: build(cls, d[k]) for k, cls in sub.items()})
+
+
+def pose_from_numpy(p, device="cpu") -> Pose:
+    q, t = tuple(p)
+    return Pose(_t(q, device), _t(t, device))
+
+
+def featcloud_from_numpy(f, device="cpu") -> FeatCloud:
+    xyz, mask, time, ring = tuple(f)
+    return FeatCloud(_t(xyz, device), _t(mask, device, torch.bool),
+                     _t(time, device), _t(ring, device, torch.int32))
+
+
+def feature_frame_from_numpy(ff, device="cpu") -> FeatureFrame:
+    return FeatureFrame(*(featcloud_from_numpy(f, device) for f in tuple(ff)))
+
+
+def range_image_from_numpy(img, device="cpu") -> RangeImage:
+    xyz, rng, valid, time, inten = tuple(img)
+    return RangeImage(_t(xyz, device), _t(rng, device),
+                      _t(valid, device, torch.bool), _t(time, device),
+                      _t(inten, device))
+
+
+def window_state_from_numpy(w, device="cpu") -> WindowState:
+    (poses, corner, surf, ext, count, prior, prior_poses, prior_ext,
+     deg_dir, deg_count) = tuple(w)
+    H, b, valid = tuple(prior)
+    return WindowState(
+        poses=pose_from_numpy(poses, device),
+        corner=featcloud_from_numpy(corner, device),
+        surf=featcloud_from_numpy(surf, device),
+        ext=pose_from_numpy(ext, device),
+        count=_t(count, device, torch.int32),
+        prior=QuadPrior(_t(H, device), _t(b, device),
+                        _t(valid, device, torch.bool)),
+        prior_poses=pose_from_numpy(prior_poses, device),
+        prior_ext=pose_from_numpy(prior_ext, device),
+        deg_dir=_t(deg_dir, device, torch.float32),
+        deg_count=_t(deg_count, device, torch.int32),
+    )
+
+
+def world_from_numpy(w, device="cpu") -> World:
+    c, u, v, rm, xyr, z, cm = tuple(w)
+    return World(_t(c, device), _t(u, device), _t(v, device),
+                 _t(rm, device, torch.bool), _t(xyr, device), _t(z, device),
+                 _t(cm, device, torch.bool))
+
+
+def trajectory_from_numpy(tr, device="cpu") -> Trajectory:
+    amp, freq, phase, yaw_rate, wobble = tuple(tr)
+    return Trajectory(_t(amp, device), _t(freq, device), _t(phase, device),
+                      float(yaw_rate), float(wobble))
+
+
+def to_numpy(x):
+    """Tensors -> numpy arrays through any nest of (named) tuples, lists and
+    dicts; everything else is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_numpy(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_numpy(v) for v in x)
+    return x

@@ -1,0 +1,242 @@
+"""Hygiene of the port: import isolation, the device rule, no hidden
+fallback from a kernel to its plain version, and explicit refusal of what is
+not ported yet."""
+
+import ast
+import dataclasses
+import inspect
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import mloam_tpu_torch
+from mloam_tpu_torch import config as C
+from mloam_tpu_torch.models import pipeline as P
+from mloam_tpu_torch.models import platforms, run_synthetic
+from mloam_tpu_torch.odometry import estimator as E
+from mloam_tpu_torch.ops import hopper_knn, hopper_labels
+from mloam_tpu_torch.ops import knn as knn_ops
+from mloam_tpu_torch.sim import world as W
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "mloam_tpu_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "mloam_tpu", "flax", "optax")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in PKG.rglob("*.py") if p.name != "__init__.py"]
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        import mloam_tpu_torch
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = [m for m in sys.modules
+               if m.split('.')[0] in ('jax', 'jaxlib', 'mloam_tpu')]
+        assert not bad, bad
+        import torch
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+        print('clean', len(sys.modules))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def test_kernel_sources_are_in_the_package():
+    names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    assert names == ["knn.cu", "labels.cu"]
+    for n in names:
+        text = (PKG / "csrc" / n).read_text()
+        assert "torch/extension.h" not in text and "__global__" in text
+        assert "cudaGetLastError" in text
+
+
+# ---------------------------------------------------------------- device rule
+
+def _no_gpu():
+    return not torch.cuda.is_available()
+
+
+def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for():
+    if not _no_gpu():
+        pytest.skip("needs a machine without a CUDA device")
+    cfg = platforms.synthetic()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.OdometryPipeline(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_synthetic.run(n_frames=2, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_synthetic.render(cfg, 1)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        W.make_world(g)
+    w = W.make_world(g, device="cpu")
+    t = W.make_trajectory(g, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        W.render_sequence(w, t, cfg.rig.models[0], 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mloam_tpu_torch.resolve_device(None)
+    assert mloam_tpu_torch.resolve_device("cpu").type == "cpu"
+    assert P.OdometryPipeline(cfg, device="cpu").device.type == "cpu"
+
+
+def test_world_is_deterministic_in_the_generator():
+    a = W.make_world(torch.Generator().manual_seed(5), device="cpu")
+    b = W.make_world(torch.Generator().manual_seed(5), device="cpu")
+    c = W.make_world(torch.Generator().manual_seed(6), device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a.rect_center, c.rect_center)
+    assert a.rect_center.shape == (25, 3) and a.cyl_xyr.shape == (12, 3)
+
+
+# ------------------------------------------------------- no hidden fallback
+
+def _has_try(fn):
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    return any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("fn", [hopper_labels.propagate_labels, hopper_knn.knn,
+                                knn_ops.knn, knn_ops.knn_auto],
+                         ids=["hopper_labels.propagate_labels", "hopper_knn.knn",
+                              "knn.knn", "knn.knn_auto"])
+def test_kernel_wrappers_have_no_try_around_the_launch(fn):
+    assert not _has_try(fn)
+
+
+def test_cuda_tensors_cannot_reach_the_plain_versions():
+    """Read the wrappers: the plain version is taken only under
+    ``not is_cuda`` / after an ``is_cuda`` return, and the kernel path ends in
+    the launch check."""
+    src = inspect.getsource(hopper_labels.propagate_labels)
+    head, tail = src.split("if not labels.is_cuda:")
+    assert "propagate_labels_plain" not in head
+    branch, rest = tail.split("global launches")
+    assert branch.count("propagate_labels_plain") == 1
+    assert "propagate_labels_plain" not in rest
+    # the counter takes the number of launches the C entry reports, nothing else
+    assert "_build.check(err" in rest
+    assert rest.count("launches +=") == 1 and "launches += n_launched.value" in rest
+
+    src = inspect.getsource(knn_ops.knn)
+    assert src.index("if q.is_cuda:") < src.index("return hopper_knn.knn(") < src.index("knn_plain(")
+    src = inspect.getsource(hopper_knn.knn)
+    assert "knn_plain" not in src and "_build.check(err" in src
+    assert src.count("launches +=") == 1
+
+
+def test_a_meta_cuda_call_raises_instead_of_falling_back(monkeypatch):
+    """A CUDA-typed call on a machine that cannot build the kernel must raise,
+    not compute something else: fake ``is_cuda`` on CPU data and make the
+    build fail."""
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    from mloam_tpu_torch.ops import _build
+
+    def boom(stem):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load", boom)
+    monkeypatch.setattr(hopper_knn, "_fn", None)
+    monkeypatch.setattr(hopper_labels, "_fn", None)
+    q = torch.zeros(4, 3).as_subclass(FakeCuda)
+    r = torch.zeros(5, 3)
+    m = torch.ones(5, dtype=torch.bool)
+    before = hopper_knn.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        knn_ops.knn(q, r, m, 2)
+    assert hopper_knn.launches == before
+    lab = torch.zeros(2, 8, dtype=torch.int32).as_subclass(FakeCuda)
+    c = torch.zeros(2, 8, dtype=torch.bool)
+    before = hopper_labels.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        hopper_labels.propagate_labels(lab, c, c, 3)
+    assert hopper_labels.launches == before
+
+
+def test_build_module_does_nothing_at_import_and_fails_loudly():
+    from mloam_tpu_torch.ops import _build
+
+    assert [p.name for p in _build.sources()] == ["knn.cu", "labels.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    with pytest.raises(RuntimeError, match="error code 7"):
+        _build.check(7, "x")
+    _build.check(0, "x")
+
+
+# ------------------------------------------------- narrowed features raise
+
+def _cfg(**odo):
+    cfg = platforms.synthetic()
+    return dataclasses.replace(cfg, odometry=dataclasses.replace(cfg.odometry, **odo))
+
+
+NARROWED = {
+    "n_lidars_2": lambda: P.OdometryPipeline(platforms.synthetic(n_lidars=2), device="cpu"),
+    "ext_mode_2": lambda: P.OdometryPipeline(
+        platforms.synthetic(n_lidars=2, extrinsic_mode=2), device="cpu"),
+    "gf_ratio": lambda: P.OdometryPipeline(_cfg(gf_ratio=0.6), device="cpu"),
+    "eig_threshold": lambda: P.OdometryPipeline(_cfg(eig_threshold=175.0), device="cpu"),
+    "window_loss_gm": lambda: P.OdometryPipeline(_cfg(loss_mode="gm"), device="cpu"),
+    "tracker_loss_gnc": lambda: P.OdometryPipeline(
+        C.with_loss_mode(platforms.synthetic(), "gnc_gm"), device="cpu"),
+    "skip_steady": lambda: P.OdometryPipeline(dataclasses.replace(
+        platforms.synthetic(), tracker=dataclasses.replace(
+            platforms.synthetic().tracker, skip_steady=True)), device="cpu"),
+    "process_chunk": lambda: P.OdometryPipeline(
+        platforms.synthetic(), device="cpu").process_chunk(None),
+    "full_pipeline": lambda: P.FullPipeline(platforms.synthetic()),
+    "slam_pipeline": lambda: P.SlamPipeline(platforms.synthetic()),
+    "calibrate_ext": lambda: E.optimize_window(
+        E.init_window(platforms.synthetic(), 8, 8, device="cpu"),
+        platforms.synthetic(), calibrate_ext=True),
+    "analytic_false": lambda: E.optimize_window(
+        E.init_window(platforms.synthetic(), 8, 8, device="cpu"),
+        platforms.synthetic(), analytic=False),
+    "marginalize_calib": lambda: E.marginalize_pivot(None, None, platforms.synthetic(),
+                                                     calibrate_ext=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NARROWED))
+def test_narrowed_feature_raises_not_implemented(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NARROWED[name]()
+
+
+def test_presets_not_ported_are_absent_not_silently_different():
+    for name in ("realtime_tuned", "indoor_degenerate", "kitti", "oxford",
+                 "handheld", "vehicle_hercules", "simu_jackal"):
+        assert not hasattr(platforms, name)
+    cfg = platforms.synthetic()
+    assert cfg.odometry.cap_frame_corner == 1024 and cfg.odometry.cap_frame_surf == 2048
+    assert cfg.features.cap_less_flat == 4096 and cfg.rig.models[0].n_cols == 1800
+    two = platforms.synthetic(n_lidars=2)
+    assert two.odometry.cap_frame_corner == 384 and two.odometry.localmap_precap_surf == 3840
