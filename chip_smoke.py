@@ -3,15 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``mloam_tpu_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card (label propagation:
-integer-exact; k-NN: distances to 1e-5 relative, indices equal wherever
-neighbouring distances are further apart than that), times them at the shapes
-the main path gives them, then drives the main path — single-LiDAR odometry,
-rendered sweep to refined pose, 40 sweeps at the full width of the synthetic
-VLP-16 platform — and checks the trajectory against ground truth (ATE < 5 cm)
-and the kernels' launch counters (every kernel launch counted where it is
-made) against the expected count per sweep.
+Builds the hand-written CUDA kernels from ``mloam_tpu_torch/csrc`` with nvcc
+and reports what ``ptxas -v`` says of each (registers, shared memory, spills:
+a spill in a k-NN instantiation fails the run), holds each kernel against its
+plain PyTorch version on the card (label propagation: integer-exact; k-NN:
+distances to 1e-5 relative, indices equal wherever neighbouring distances are
+further apart than that, and equal at every slot on a grid built to tie),
+times them at the shapes the main path gives them (``ms``: CUDA events
+around 20 back-to-back eager calls, as the first slice timed them;
+``graph_ms``: the same calls captured in one CUDA graph and replayed, which
+leaves out the host's cost of issuing them), then
+drives the main path — single-LiDAR odometry, rendered sweep to refined pose,
+40 sweeps at the full width of the synthetic VLP-16 platform — and checks the
+trajectory against ground truth (ATE < 5 cm) and the kernels' launch counters
+(every kernel launch counted where it is made) against the expected count
+per sweep.
 
 One JSON object per line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -21,7 +27,9 @@ Needs one CUDA device and nvcc; no network.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +51,7 @@ from mloam_tpu_torch.ops import _build, hopper_knn, hopper_labels  # noqa: E402
 from mloam_tpu_torch.ops import knn as knn_ops  # noqa: E402
 
 DEV = torch.device("cuda")
+SMS = torch.cuda.get_device_properties(0).multi_processor_count
 N_FRAMES = 40
 ATE_GATE_M = 0.05
 KNN_RTOL = 1e-5
@@ -77,6 +86,27 @@ def time_ms(fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, so the launches run back to back and the host's cost
+    of issuing them is not in the time."""
+    fn()  # first use: build, load and set kernel attributes outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 # --------------------------------------------------------------------------
 # env + build
 # --------------------------------------------------------------------------
@@ -97,13 +127,68 @@ def phase_env():
     return smi
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+_KERNEL_NAME = re.compile(r"(knn_kernel|label_kernel)(?:ILi(\d+)EE)?")
+
+
+def parse_ptxas(log):
+    """{kernel: {registers, smem_bytes, stack_bytes, spill_stores, spill_loads}}
+    from ``ptxas -v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            k = _KERNEL_NAME.search(m.group(1))
+            cur = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2) else
+                   k.group(1) if k else m.group(1))
+            out[cur] = {}
+        elif cur and (m := _PTXAS_SPILL.search(line)):
+            out[cur].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        elif cur and (m := _PTXAS_REGS.search(line)):
+            sm = _PTXAS_SMEM.search(line)
+            out[cur].update(registers=int(m.group(1)),
+                            smem_bytes=int(sm.group(1)) if sm else 0)
+    return out
+
+
 def phase_build():
+    """Build the kernels' libraries and, in parallel, a cubin of each source
+    under ``ptxas -v`` for the report (the library build may find its
+    libraries already built and print nothing)."""
     t0 = time.perf_counter()
-    libs = _build.build_all(verbose=True)
+    report_dir = _build.BUILD_DIR / "ptxas"
+    report_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = [(src.stem, subprocess.Popen(
+        [_build.find_nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+         "-o", str(report_dir / f"{src.stem}.cubin"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in _build.sources()]
+    libs = _build.build_all()
     for stem in libs:
         _build.load(stem)
+    report = {}
+    for stem, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            fail(f"ptxas report of {stem}.cu failed:\n{log}")
+        report[stem] = parse_ptxas(log)
     emit({"build": {"seconds": round(time.perf_counter() - t0, 3),
-                    "libraries": sorted(p.name for p in libs.values())}})
+                    "libraries": sorted(p.name for p in libs.values()),
+                    "ptxas": report}})
+    knn_fns = report.get("knn", {})
+    if len(knn_fns) != hopper_knn.MAX_K:
+        fail(f"ptxas report lists {len(knn_fns)} k-NN instantiations, expected "
+             f"{hopper_knn.MAX_K}")
+    spilled = [n for n, v in knn_fns.items()
+               if v.get("spill_stores", 1) or v.get("spill_loads", 1)]
+    if spilled:
+        fail(f"k-NN instantiations spill to local memory: {spilled}")
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -160,10 +245,17 @@ def label_bound_ms(r, c, rounds):
 # K2: k-NN
 # --------------------------------------------------------------------------
 
-def check_knn(name, q, r, m, k):
+def check_knn(name, q, r, m, k, ties=False):
+    """Hold the kernel against ``knn_plain``. With ``ties`` (inputs whose
+    distances are exact in float32 and tie often) every slot's distance and
+    index must be equal: both keep the lowest index among equal distances."""
     d, i = hopper_knn.knn(q, r, m, k)
     torch.cuda.synchronize()
     dp, ip = knn_ops.knn_plain(q, r, m, k)
+    if ties and not (torch.equal(d, dp) and torch.equal(i, ip)):
+        fail(f"knn {name}: {int((i != ip).sum())} of {i.numel()} indices and "
+             f"{int((d != dp).sum())} distances differ from the plain version "
+             "on exact ties")
     if d.shape != (q.shape[0], k) or i.shape != d.shape or i.dtype != torch.int64:
         fail(f"knn {name}: wrong output shape/dtype")
     if int(i.min()) < 0 or int(i.max()) >= r.shape[0]:
@@ -201,6 +293,8 @@ def check_knn(name, q, r, m, k):
     max_err = float(err[real].max()) if bool(real.any()) else 0.0
     return {"case": name, "nq": q.shape[0], "nr": r.shape[0], "k": k,
             "valid_refs": int(m.sum()), "max_abs_err": max_err,
+            "lanes_per_query": hopper_knn.lanes_per_query(q.shape[0], SMS),
+            "all_slots_equal": bool(torch.equal(i, ip)),
             "indices_compared": int(distinct.sum()),
             "kth_slot_index_differs": int(mismatch.sum())}
 
@@ -235,7 +329,41 @@ def knn_edge_cases():
     cases.append(("nr_lt_k", pts(70), r4, torch.ones(3, dtype=torch.bool, device=DEV), 5))
     far = pts(2000, 0.5) + torch.tensor([80.0, -60.0, 2.0], device=DEV)
     cases.append(("lidar_range_offsets_k5", far[:500], far, torch.ones(2000, dtype=torch.bool, device=DEV), 5))
+    r5 = pts(5000)
+    cases.append(("nq_1_k8", pts(1), r5, torch.ones(5000, dtype=torch.bool, device=DEV), 8))
+    # 3001 queries at 8 lanes each: the last warp is a quarter full
+    cases.append(("nq_3001_k5", pts(3001), r5, (torch.rand(5000, generator=g) < 0.6).to(DEV), 5))
     return cases
+
+
+def knn_tie_cases():
+    """Integer-grid references in shuffled order and half-integer queries:
+    every squared distance is a multiple of 1/4, exact in float32, and most
+    k-lists hold ties. 1331 references: not a multiple of the 1024-point
+    tile. 500 queries run at 32 lanes each, 6144 at 8."""
+    g = torch.Generator().manual_seed(11)
+    ax = torch.arange(11, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    grid = grid[torch.randperm(grid.shape[0], generator=g)].to(DEV)
+    nr = grid.shape[0]
+    q = (torch.randint(0, 10, (500, 3), generator=g).float() + 0.5).to(DEV)
+    q_many = (torch.randint(0, 10, (6144, 3), generator=g).float() + 0.5).to(DEV)
+    ones = torch.ones(nr, dtype=torch.bool, device=DEV)
+    part = (torch.rand(nr, generator=g) < 0.7).to(DEV)
+    cases = [(f"ties_grid_k{k}", q, grid, ones, k) for k in (1, 5, 8)]
+    cases.append(("ties_grid_70pct_valid_k8", q, grid, part, 8))
+    cases.append(("ties_grid_6144q_k5", q_many, grid, part, 5))
+    return cases
+
+
+def mapper_scale_case():
+    """6144 queries against a 65536-point map, ~30 % valid, k = 5: the size
+    the mapper's slice will hand the kernel (not on the main path yet)."""
+    g = torch.Generator().manual_seed(13)
+    r = (torch.rand((65536, 3), generator=g) - 0.5) * torch.tensor([120.0, 120.0, 8.0])
+    m = torch.rand(65536, generator=g) < 0.3
+    q = r[torch.randperm(65536, generator=g)[:6144]] + 0.05 * torch.randn((6144, 3), generator=g)
+    return "mapper_6144x65536_k5", q.to(DEV), r.to(DEV), m.to(DEV), 5
 
 
 # --------------------------------------------------------------------------
@@ -275,44 +403,112 @@ def capture_main_path_inputs(cfg):
     return knn_calls, label_calls[0], last_img
 
 
+def knn_by_lanes(name, q, r, m, k):
+    """Time the kernel (``graph_ms``) at every lanes-per-query choice
+    ``lanes_per_query`` can make, through its C entry (not counted: these are
+    not the main path's launches), and require the same answer from each: the
+    lanes' lists merge exactly."""
+    fn = hopper_knn._kernel_fn()
+    r, m = hopper_knn.aligned16(r), hopper_knn.aligned16(m)
+    want = hopper_knn.knn(q, r, m, k)
+    out = {}
+    for lanes in (8, 16, 32):
+        d = torch.empty_like(want[0])
+        i = torch.empty_like(want[1])
+
+        def call():
+            _build.check(fn(q.data_ptr(), r.data_ptr(), m.data_ptr(), d.data_ptr(),
+                            i.data_ptr(), q.shape[0], r.shape[0], k, lanes,
+                            torch.cuda.current_stream().cuda_stream), "knn")
+        out[lanes] = graph_ms(call)
+        if not (torch.equal(d, want[0]) and torch.equal(i, want[1])):
+            fail(f"knn {name}: {lanes} lanes per query give another answer")
+    return out
+
+
+def knn_timing(name, q, r, m, k, chk):
+    n0 = hopper_knn.launches
+    hopper_knn.knn(q, r, m, k)
+    per_call = hopper_knn.launches - n0
+    if per_call != 1:
+        fail(f"knn {name}: one call made {per_call} kernel launches; the design is one")
+    ms = time_ms(lambda: hopper_knn.knn(q, r, m, k))
+    g_ms = graph_ms(lambda: hopper_knn.knn(q, r, m, k))
+    bound, by = knn_bound_ms(q.shape[0], r.shape[0], chk["valid_refs"], k)
+    all_valid = torch.ones_like(m)
+    return {"name": name, "nq": q.shape[0], "nr": r.shape[0], "k": k,
+            "valid_refs": chk["valid_refs"],
+            "lanes_per_query": chk["lanes_per_query"],
+            "launches_per_call": per_call,
+            "max_abs_err": chk["max_abs_err"], "ms": ms, "graph_ms": g_ms,
+            "plain_ms": time_ms(lambda: knn_ops.knn_plain(q, r, m, k), reps=5),
+            "library_ms": time_ms(lambda: library_knn(q, r, m, k), reps=5),
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "graph_bound_share": bound / g_ms,
+            # what skipping masked references and splitting a query buy
+            "graph_ms_all_refs_valid": graph_ms(lambda: hopper_knn.knn(q, r, all_valid, k)),
+            "graph_ms_by_lanes": knn_by_lanes(name, q, r, m, k)}
+
+
+def label_timing(name, case, rounds):
+    lab, ch, cv = case
+    n0 = hopper_labels.launches
+    hopper_labels.propagate_labels(lab, ch, cv, rounds)
+    per_call = hopper_labels.launches - n0   # counted by the C entry
+    if per_call != 1:
+        fail(f"labels {name}: one call of {rounds} rounds made {per_call} kernel "
+             "launches; the design is one")
+    ms = time_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, rounds))
+    g_ms = graph_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, rounds))
+    bound, by = label_bound_ms(lab.shape[0], lab.shape[1], rounds)
+    # the slope over rounds is the cost of one round; what is left at 0, the
+    # launch and the image's one read and write
+    by_rounds = {n: graph_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, n))
+                 for n in (1, 2, 8)}
+    return {"name": name, "shape": list(lab.shape), "rounds": rounds,
+            "smem_bytes_per_block": hopper_labels.smem_bytes(*lab.shape),
+            "launches_per_call": per_call, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": time_ms(lambda: hopper_labels.propagate_labels_plain(lab, ch, cv, rounds), reps=5),
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "graph_bound_share": bound / g_ms,
+            "graph_ms_by_rounds": {**by_rounds, rounds: g_ms}}
+
+
 def phase_kernels(cfg):
     model = cfg.rig.models[0]
     knn_calls, label_call, img = capture_main_path_inputs(cfg)
 
     # ---- K1 correctness
+    smem_fn = _build.load("labels").mloam_labels_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem_fn.restype = ctypes.c_longlong
     label_checks = []
-    for (r, c) in ((16, 1800), (32, 2160), (64, 1800), (5, 37)):
+    for (r, c) in ((16, 1800), (32, 2160), (64, 1800), (5, 37), (1, 1800), (13, 1800)):
+        if smem_fn(r, c) != hopper_labels.smem_bytes(r, c):
+            fail(f"labels: the wrapper's shared-memory size for {r}x{c} "
+                 f"({hopper_labels.smem_bytes(r, c)}) is not the kernel's ({smem_fn(r, c)})")
         label_checks += check_labels(f"random_{r}x{c}", random_label_case(r, c, r + c))
     label_checks += check_labels("rendered_frame", rendered_label_case(img, model, cfg))
     label_checks += check_labels("main_path", label_call[:3], (label_call[3],))
-    # ---- K1 timing at the main-path shape
+    # ---- K1 timing: the main-path call, and the other sensors' shapes
     lab, ch, cv, rounds = label_call
-    n0 = hopper_labels.launches
-    hopper_labels.propagate_labels(lab, ch, cv, rounds)
-    k1_launches_per_call = hopper_labels.launches - n0   # counted by the C entry
-    if k1_launches_per_call != 2 * rounds:
-        fail(f"labels: one call of {rounds} rounds made {k1_launches_per_call} "
-             f"kernel launches; the design is two per round")
-    k1_ms = time_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, rounds))
-    k1_plain = time_ms(lambda: hopper_labels.propagate_labels_plain(lab, ch, cv, rounds), reps=5)
-    k1_bound, k1_by = label_bound_ms(lab.shape[0], lab.shape[1], rounds)
+    k1 = label_timing("main_path", (lab, ch, cv), rounds)
+    k1_other = [label_timing(f"random_{r}x{c}", random_label_case(r, c, r + c), rounds)
+                for (r, c) in ((32, 2160), (64, 1800))]
 
-    # ---- K2 correctness
+    # ---- K2 correctness: edge cases, exact ties, the main path's calls
     knn_checks = [check_knn(*c) for c in knn_edge_cases()]
+    knn_checks += [check_knn(*c, ties=True) for c in knn_tie_cases()]
     names = ("tracker_edge", "tracker_plane", "window_edge", "window_plane")
     shapes = []
     for name, (q, r, m, k) in zip(names, knn_calls):
         chk = check_knn(f"main_path_{name}", q, r, m, k)
         knn_checks.append(chk)
-        ms = time_ms(lambda: hopper_knn.knn(q, r, m, k))
-        plain = time_ms(lambda: knn_ops.knn_plain(q, r, m, k), reps=5)
-        lib = time_ms(lambda: library_knn(q, r, m, k), reps=5)
-        bound, by = knn_bound_ms(q.shape[0], r.shape[0], chk["valid_refs"], k)
-        shapes.append({"name": name, "nq": q.shape[0], "nr": r.shape[0], "k": k,
-                       "valid_refs": chk["valid_refs"],
-                       "max_abs_err": chk["max_abs_err"], "ms": ms,
-                       "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bound, "bound_by": by})
+        shapes.append(knn_timing(name, q, r, m, k, chk))
+    mapper = mapper_scale_case()
+    chk = check_knn(*mapper)
+    knn_checks.append(chk)
+    mapper_timing = knn_timing(*mapper, chk)
     emit({"kernel_checks": {"labels": label_checks, "knn": knn_checks}})
 
     big = max(shapes, key=lambda s: s["nq"] * s["nr"])
@@ -320,21 +516,27 @@ def phase_kernels(cfg):
         {"name": "propagate_labels", "route": "cuda",
          "source": "mloam_tpu_torch/csrc/labels.cu",
          "replaces": "mloam_tpu/ops/pallas_labels.py:58",
-         "shape": list(lab.shape), "rounds": rounds,
-         "kernel_launches_per_call": k1_launches_per_call,
+         "shape": k1["shape"], "rounds": rounds,
+         "kernel_launches_per_call": k1["launches_per_call"],
          "max_abs_err": max(c["max_abs_err"] for c in label_checks),
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "ms": k1["ms"], "graph_ms": k1["graph_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "bound_share": k1["bound_share"], "graph_bound_share": k1["graph_bound_share"],
+         "library_ms": None,
+         "graph_ms_by_rounds": k1["graph_ms_by_rounds"], "other_shapes": k1_other},
         {"name": "knn", "route": "cuda",
          "source": "mloam_tpu_torch/csrc/knn.cu",
          "replaces": "mloam_tpu/ops/pallas_knn.py:55",
-         "shape": {k: big[k] for k in ("name", "nq", "nr", "k", "valid_refs")},
+         "shape": {k: big[k] for k in ("name", "nq", "nr", "k", "valid_refs",
+                                       "lanes_per_query")},
          "max_abs_err": max(s["max_abs_err"] for s in shapes),
-         "ms": big["ms"], "plain_ms": big["plain_ms"],
+         "ms": big["ms"], "graph_ms": big["graph_ms"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+         "bound_share": big["bound_share"], "graph_bound_share": big["graph_bound_share"],
          "library_ms": big["library_ms"],
          "per_sweep_ms": sum(s["ms"] for s in shapes),
-         "main_path_shapes": shapes},
+         "per_sweep_graph_ms": sum(s["graph_ms"] for s in shapes),
+         "main_path_shapes": shapes, "mapper_scale": mapper_timing},
     ]
 
 
@@ -350,9 +552,8 @@ def phase_main_path(cfg, kernels):
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
 
     ws = cfg.odometry.window_size
-    # one call per sweep, each of as many kernel launches as one call was
-    # counted to make on the main path's input
-    want_labels = N_FRAMES * kernels[0]["kernel_launches_per_call"]
+    # one call per sweep, one launch per call
+    want_labels = N_FRAMES
     # sweep 0 matches nothing; warm-up sweeps run the tracker's two matchers;
     # from the warm window on, the two map matchers as well
     want_knn = 2 * (ws - 1) + 4 * (N_FRAMES - ws)

@@ -12,10 +12,14 @@ Replaces the TPU kernel ``mloam_tpu/ops/pallas_labels.py:_label_kernel``
             again -> column segmented-min
 
 Bound on the H100: the image is a few hundred KB, so the bytes are well under
-a microsecond of memory time and the cost is launch latency. The kernel side
-therefore does each round in two launches (everything per-row in one, the
-column pass in the other: ``2 * rounds`` launches per call) instead of the
-dozens of small ops of the plain version. See the note in ``csrc/labels.cu``.
+a microsecond of memory time and the cost is launches and barriers. The first
+design took two launches a round (6 for the main path's 3 rounds). This one
+is one launch for all rounds, as the TPU kernel is one dispatch: a cluster of
+``min(R, 8)`` blocks, each holding its rows in shared memory for the whole
+call, with the column scan carried across blocks through distributed shared
+memory. An image whose block does not fit in shared memory raises
+``ValueError`` before anything is built or launched. See the note in
+``csrc/labels.cu``.
 
 On a CUDA tensor ``propagate_labels`` launches the kernel or raises; the plain
 version runs only for CPU tensors.
@@ -31,7 +35,9 @@ from mloam_tpu_torch.ops import _build
 
 launches = 0  # kernel launches made by propagate_labels(), as the C entry counted them
 
-_MAX_SMEM = 232448  # bytes of shared memory a block can use on sm_90
+MAX_SMEM = 232448  # bytes of shared memory a block can use on sm_90
+MAX_CLUSTER = 8    # blocks of the cluster: the portable maximum
+_THREADS = 1024    # threads per block, as in csrc/labels.cu
 _fn = None
 
 
@@ -46,6 +52,32 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def smem_bytes(r: int, c: int) -> int:
+    """Shared memory one block of the cluster needs for an R x C image: its
+    ceil(R / min(R, 8)) rows as int32 labels, int16 run starts and the two
+    connection bytes, plus 24 bytes of partials and carries per column, the
+    scan buffer and one int per row (the layout of ``csrc/labels.cu``)."""
+    def a16(x):
+        return (x + 15) & ~15
+    rows = -(-r // min(r, MAX_CLUSTER))
+    n = rows * c
+    off = a16(4 * n)  # labels
+    # column partials and carries, scan buffer, seam minima, run starts
+    off = a16(off + 24 * c + 4 * _THREADS + 4 * rows + 2 * n)
+    return a16(off + 2 * n)  # conn_h, conn_v
+
+
+def check_fits(r: int, c: int):
+    """Raise ``ValueError`` for an image the one-cluster kernel cannot hold."""
+    if c > 32767:
+        raise ValueError(f"C = {c} columns: run starts are int16, C must be <= 32767")
+    need = smem_bytes(r, c)
+    if need > MAX_SMEM:
+        raise ValueError(
+            f"a {r}x{c} image needs {need} bytes of shared memory per block of a "
+            f"{min(r, MAX_CLUSTER)}-block cluster; the limit is {MAX_SMEM}")
 
 
 def _check_args(labels, conn_h, conn_v, rounds):
@@ -108,8 +140,7 @@ def propagate_labels(labels: torch.Tensor, conn_h: torch.Tensor,
     global launches
     _check_args(labels, conn_h, conn_v, rounds)
     r, c = labels.shape
-    if 3 * c * 4 > _MAX_SMEM:
-        raise ValueError(f"row of {c} columns does not fit a block's shared memory")
+    check_fits(r, c)
     labels = labels.contiguous()
     conn_h = conn_h.contiguous()
     conn_v = conn_v.contiguous()

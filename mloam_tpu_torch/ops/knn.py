@@ -1,8 +1,8 @@
 """Correspondence search without kd-trees: brute-force k-NN.
 
 ``knn_plain`` is the plain PyTorch version — chunked direct-difference
-distances plus ``torch.topk`` with a running merge — and the path CPU tensors
-take. ``knn_auto``, the entry point of the matchers, sends CUDA tensors to the
+distances, ``torch.topk`` over packed (d², index) keys, and a running merge —
+and the path CPU tensors take. ``knn_auto``, the entry point of the matchers, sends CUDA tensors to the
 hand-written kernel (``ops/hopper_knn.py``), which never forms the distance
 matrix in device memory.
 
@@ -12,8 +12,9 @@ form cancels when ‖q − r‖ << ‖q‖ (every LiDAR correspondence) and buys
 nothing for 3-wide points.
 
 All inputs are fixed-capacity padded tensors with boolean masks. Contract on
-return: d² ascending; slots with no unmasked reference left hold d² = 1e30
-and an index inside [0, Nr). Indices are int64 so they index tensors directly.
+return: d² ascending, ties to the lowest index; slots with no unmasked
+reference left hold d² = 1e30 and index 0. Indices are int64 so they index
+tensors directly.
 """
 
 from __future__ import annotations
@@ -35,29 +36,40 @@ def pairwise_sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def _keys(d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(d², index) packed into one int64 per pair so that integer order is
+    (d² ascending, index ascending): the bits of a non-negative float32 order
+    as its value, and no two pairs share an index, so no two keys tie."""
+    return (d.view(torch.int32).to(torch.int64) << 32) | idx
+
+
+def _unkeys(key: torch.Tensor):
+    d = (key >> 32).to(torch.int32).view(torch.float32)
+    return d, key & 0xFFFFFFFF
+
+
 def knn_plain(q: torch.Tensor, r: torch.Tensor, r_mask: torch.Tensor, k: int,
               chunk: int = 4096):
     """k nearest reference points for each query, exact.
 
     Returns (dists [Nq,k] squared, idx [Nq,k] into r). Chunked over the
     reference axis: each step computes a [Nq, chunk] distance tile and merges
-    its top-k into the running best-k.
+    its k least into the running best-k. Ties go to the lowest index, the
+    rule the kernel keeps: selection and merge both order by the packed
+    (d², index) key of ``_keys``, on which ``torch.topk`` cannot tie. Slots
+    with no unmasked reference hold d² = 1e30 and index 0, as the kernel's do.
     """
     nr = r.shape[0]
-    best_d = best_i = None
+    best = None
     for lo in range(0, nr, chunk):
         rc, mc = r[lo:lo + chunk], r_mask[lo:lo + chunk]
-        d = pairwise_sqdist(q, rc)
-        d = torch.where(mc[None, :], d, _BIG)
-        kk = min(k, rc.shape[0])
-        neg, idx = torch.topk(-d, kk, dim=1)
-        cd, ci = -neg, idx + lo
-        if best_d is not None:
-            cd, ci = torch.cat([best_d, cd], 1), torch.cat([best_i, ci], 1)
-        if cd.shape[1] > k or best_d is not None:
-            neg, sel = torch.topk(-cd, min(k, cd.shape[1]), dim=1)
-            cd, ci = -neg, torch.gather(ci, 1, sel)
-        best_d, best_i = cd, ci
+        d = torch.where(mc[None, :], pairwise_sqdist(q, rc), _BIG)
+        key = _keys(d, torch.arange(lo, lo + rc.shape[0], device=q.device))
+        if best is not None:
+            key = torch.cat([best, key], 1)
+        best = torch.topk(key, min(k, key.shape[1]), dim=1, largest=False).values
+    best_d, best_i = _unkeys(best)
+    best_i = torch.where(best_d >= _BIG, 0, best_i)
     if best_d.shape[1] < k:  # tiny reference sets: pad so k slots exist
         pad = k - best_d.shape[1]
         best_d = torch.cat([best_d, best_d.new_full((q.shape[0], pad), _BIG)], 1)

@@ -181,6 +181,31 @@ def test_a_meta_cuda_call_raises_instead_of_falling_back(monkeypatch):
     assert hopper_labels.launches == before
 
 
+@pytest.mark.parametrize("shape", [(64, 4000), (2, 40000)], ids=["smem", "int16_runs"])
+def test_label_kernel_refuses_an_image_too_large_before_any_build(monkeypatch, shape):
+    """An image whose cluster block does not fit in shared memory (or whose
+    run starts overflow int16) raises ValueError naming the limit, before the
+    kernel is built or launched: there is no fallback."""
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    from mloam_tpu_torch.ops import _build
+
+    def boom(stem):
+        raise AssertionError("the kernel must not be built for this image")
+
+    monkeypatch.setattr(_build, "load", boom)
+    monkeypatch.setattr(hopper_labels, "_fn", None)
+    lab = torch.zeros(shape, dtype=torch.int32).as_subclass(FakeCuda)
+    c = torch.zeros(shape, dtype=torch.bool)
+    before = hopper_labels.launches
+    with pytest.raises(ValueError, match="232448|32767"):
+        hopper_labels.propagate_labels(lab, c, c, 3)
+    assert hopper_labels.launches == before
+
+
 def test_build_module_does_nothing_at_import_and_fails_loudly():
     from mloam_tpu_torch.ops import _build
 

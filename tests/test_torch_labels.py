@@ -114,6 +114,20 @@ def test_wrapper_rejects_bad_arguments():
         hopper_labels.propagate_labels(labels, ch, cv, 0)
 
 
+@pytest.mark.parametrize("shape", [(16, 1800), (32, 2160), (64, 1800),
+                                   (13, 1800), (1, 1800), (5, 37)])
+def test_every_sensor_shape_fits_one_cluster(shape):
+    """The three sensor shapes (VLP-16, HDL-32, HDL-64) and the odd ones the
+    card checks fit one cluster; at their widths 128 rows (16 a block) do not.
+    (That the sizes equal the kernel's own layout is checked on the card.)"""
+    r, c = shape
+    hopper_labels.check_fits(r, c)
+    assert hopper_labels.smem_bytes(r, c) <= hopper_labels.MAX_SMEM
+    if c >= 1800:
+        with pytest.raises(ValueError, match=str(hopper_labels.MAX_SMEM)):
+            hopper_labels.check_fits(128, c)
+
+
 @pytest.fixture(scope="module")
 def rendered():
     model = JModel(n_rings=8, n_cols=360)

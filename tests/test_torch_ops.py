@@ -21,6 +21,7 @@ from mloam_tpu.ops import knn as jknn
 from mloam_tpu.ops import select as jsel
 from mloam_tpu.ops import sym3x3 as jsym
 from mloam_tpu.ops import voxel as jvox
+from mloam_tpu_torch.ops import hopper_knn
 from mloam_tpu_torch.ops import knn as tknn
 from mloam_tpu_torch.ops import select as tsel
 from mloam_tpu_torch.ops import sym3x3 as tsym
@@ -270,6 +271,68 @@ def test_knn_k1_matches_pallas_kernel_interpreted():
     td, ti = tknn.knn(T(q), T(r), T(m), 1)
     np.testing.assert_allclose(N(td)[:, 0], N(pd)[:, 0], atol=1e-3)
     assert (N(ti)[:, 0] == N(pi)[:, 0]).mean() == 1.0
+
+
+def _tie_grid(seed):
+    """Integer-grid references in shuffled order and half-integer queries:
+    every squared distance is a multiple of 1/4, exact in float32 and float64,
+    and most k-lists hold ties."""
+    rng = np.random.default_rng(seed)
+    ax = np.arange(7, dtype=np.float32)
+    r = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    r = r[rng.permutation(r.shape[0])]
+    q = (rng.integers(0, 6, (120, 3)) + 0.5).astype(np.float32)
+    return q, r, rng.random(r.shape[0]) < 0.7
+
+
+@pytest.mark.parametrize("chunk", [4096, 50])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_knn_plain_takes_the_lowest_index_on_ties(k, chunk):
+    """The kernel's tie rule: among equal distances the lowest index, in the
+    per-chunk selection and across the running merge (chunk=50 < Nr=343)."""
+    q, r, m = _tie_grid(k)
+    for mask in (np.ones(r.shape[0], bool), m):
+        td, ti = tknn.knn_plain(T(q), T(r), T(mask), k, chunk=chunk)
+        d64 = ((q[:, None].astype(np.float64) - r[None]) ** 2).sum(-1)
+        d64[:, ~mask] = np.inf
+        want = np.argsort(d64, axis=1, kind="stable")[:, :k]
+        np.testing.assert_array_equal(N(ti), want)
+        np.testing.assert_array_equal(N(td), np.take_along_axis(d64, want, 1))
+        kth = np.take_along_axis(d64, want[:, -1:], 1)
+        assert ((d64 == kth).sum(1) > 1).mean() > 0.5   # the k-th slot ties
+
+
+
+def test_knn_plain_empty_slots_hold_index_zero():
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(10, 3)).astype(np.float32)
+    r = rng.normal(size=(40, 3)).astype(np.float32)
+    m = np.zeros(40, bool)
+    m[[7, 30]] = True
+    td, ti = tknn.knn_plain(T(q), T(r), T(m), 5, chunk=16)
+    assert (N(td)[:, 2:] == np.float32(1e30)).all() and (N(ti)[:, 2:] == 0).all()
+    assert set(N(ti)[:, :2].ravel()) <= {7, 30}
+
+
+@pytest.mark.parametrize("nq,lanes", [(192, 32), (384, 32), (3072, 8), (6144, 8)],
+                         ids=["tracker_edge", "tracker_plane", "window_edge",
+                              "window_plane"])
+def test_knn_lanes_per_query_at_the_main_path_shapes(nq, lanes):
+    """On a 132-SM card: at least four warps an SM where 32 lanes allow it,
+    never fewer than 8 lanes a query."""
+    got = hopper_knn.lanes_per_query(nq, 132)
+    assert got == lanes
+    assert nq * got // 32 >= 4 * 132 or got == 32
+    assert got == hopper_knn.MIN_LANES or nq * got // 2 // 32 < 4 * 132
+
+
+def test_knn_reference_buffers_are_16_byte_aligned():
+    base = torch.zeros(1001, 3)
+    view = base.reshape(-1)[1:3001].reshape(1000, 3)   # starts 4 bytes in
+    assert view.data_ptr() % 16 != 0
+    out = hopper_knn.aligned16(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
+    assert hopper_knn.aligned16(base).data_ptr() == base.data_ptr()
 
 
 def test_knn_wrapper_rejects_bad_arguments():
