@@ -12,12 +12,26 @@ further apart than that, and equal at every slot on a grid built to tie),
 times them at the shapes the main path gives them (``ms``: CUDA events
 around 20 back-to-back eager calls, as the first slice timed them;
 ``graph_ms``: the same calls captured in one CUDA graph and replayed, which
-leaves out the host's cost of issuing them), then
-drives the main path — single-LiDAR odometry, rendered sweep to refined pose,
-40 sweeps at the full width of the synthetic VLP-16 platform — and checks the
-trajectory against ground truth (ATE < 5 cm) and the kernels' launch counters
-(every kernel launch counted where it is made) against the expected count
-per sweep.
+leaves out the host's cost of issuing them), then drives four paths, each
+with the kernels' launch counters (every kernel launch counted where it is
+made) set to 0 just before it and checked just after against the count its
+sweeps must make:
+
+- the main path: single-LiDAR odometry, rendered sweep to refined pose, 40
+  sweeps at the full width of the synthetic VLP-16 platform, ATE < 5 cm;
+- the rig path: a dual VLP-16 rig with known extrinsics (ESTIMATE_EXTRINSIC
+  0), 40 sweeps, ATE < 5 cm;
+- the calibration path: the same rig from fully unknown extrinsics, 90
+  sweeps of rotation-rich motion through the lifecycle 2 -> 1 -> 0, which must
+  complete with a final extrinsic error under 5 mrad and 2 cm;
+- the presets: 8 sweeps each of Oxford (2x HDL-32, 32x2160), KITTI (HDL-64,
+  64x1800) and the Hercules vehicle (4x VLP-16, ESTIMATE_EXTRINSIC 1 as
+  shipped), finite poses.
+
+The k-NN calls of the dual rig's window solve and of the calibration path's
+first warm sweeps in modes 2 and 1, and the label propagation calls of the
+presets, are captured from those paths and held against the plain versions
+too.
 
 One JSON object per line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -43,7 +57,9 @@ if not torch.cuda.is_available():
 import numpy as np  # noqa: E402
 
 import mloam_tpu_torch  # noqa: E402
+from mloam_tpu_torch.core import se3  # noqa: E402
 from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage  # noqa: E402
+from mloam_tpu_torch.core.se3 import Pose  # noqa: E402
 from mloam_tpu_torch.frontend import segmentation as S  # noqa: E402
 from mloam_tpu_torch.models import platforms, run_synthetic  # noqa: E402
 from mloam_tpu_torch.models.pipeline import OdometryPipeline  # noqa: E402
@@ -55,6 +71,34 @@ SMS = torch.cuda.get_device_properties(0).multi_processor_count
 N_FRAMES = 40
 ATE_GATE_M = 0.05
 KNN_RTOL = 1e-5
+CALIB_FRAMES = 90
+CALIB_ROT_GATE_RAD = 5e-3
+CALIB_POS_GATE_M = 0.02
+PRESET_FRAMES = 8
+# what the JAX package's `experiments calib` program recorded for the same
+# lifecycle (results/calib/summary.json): its world is drawn by another
+# generator, so the sweeps of the transitions are set beside, not compared
+JAX_CALIB_RECORD = {"init_done": 30, "frozen": 54,
+                    "final_rot_err_rad": 0.00142999819945544,
+                    "final_pos_err_m": 0.004379465244710445}
+
+
+def _rig(*tangents):
+    """Extrinsics [L] (base <- lidar): lidar 0 at the base, lidar l at
+    exp(tangents[l-1]) ([rho, phi])."""
+    xi = torch.tensor([[0.0] * 6] + [list(t) for t in tangents])
+    return se3.exp(xi)
+
+
+# the JAX e2e test's dual rig (30 deg of yaw, 38 cm off)
+RIG_X = Pose(torch.tensor([[1.0, 0, 0, 0], [0.9659258, 0.0, 0.0, 0.258819]]),
+             torch.tensor([[0.0, 0, 0], [0.3, -0.2, 0.1]]))
+# the extrinsic of the JAX package's calibration program, and its Hercules
+# rig's three
+CALIB_X = _rig([0.25, -0.1, 0.05, 0.05, -0.03, 0.5])
+HERCULES_X = _rig([0.25, -0.1, 0.05, 0.05, -0.03, 0.5],
+                  [-0.2, 0.15, -0.05, -0.04, 0.06, -0.4],
+                  [0.1, 0.3, 0.02, 0.03, -0.05, 1.0])
 
 # H100 SXM data-sheet peaks the bounds are stated against
 PEAK_BYTES_S = 3.35e12
@@ -370,12 +414,17 @@ def mapper_scale_case():
 # capture the main path's kernel inputs
 # --------------------------------------------------------------------------
 
-def capture_main_path_inputs(cfg):
+def capture_main_path_inputs(cfg, extrinsics=None):
     """Run the pipeline until the window is warm and record, on the first
-    steady sweep, the tensors the main path hands to each kernel."""
+    steady sweep, the tensors the path hands to each kernel: the tracker's
+    two k-NN calls, the window's two, and one label call per lidar."""
     n = cfg.odometry.window_size + 2
-    imgs, _ = run_synthetic.render(cfg, n, seed=1, device=DEV)
+    L = cfg.rig.n_lidars
+    seqs, _ = run_synthetic.render_rig(cfg, n, seed=1, extrinsics=extrinsics,
+                                       device=DEV)
     pipe = OdometryPipeline(cfg, device=DEV)
+    if extrinsics is not None:
+        pipe.set_extrinsics(extrinsics)
     knn_calls, label_calls = [], []
     real_knn, real_labels = hopper_knn.knn, hopper_labels.propagate_labels
 
@@ -388,18 +437,18 @@ def capture_main_path_inputs(cfg):
         return real_labels(labels, ch, cv, rounds)
 
     for i in range(n):
-        img = RangeImage(*(f[i] for f in imgs))
+        frames = [RangeImage(*(f[i] for f in imgs)) for imgs in seqs]
         if i == n - 1:
             hopper_knn.knn, hopper_labels.propagate_labels = rec_knn, rec_labels
         try:
-            pipe.process([img])
+            pipe.process(frames)
         finally:
             hopper_knn.knn, hopper_labels.propagate_labels = real_knn, real_labels
     torch.cuda.synchronize()
-    if len(knn_calls) != 4 or len(label_calls) != 1:
-        fail(f"steady sweep made {len(knn_calls)} k-NN and {len(label_calls)} "
-             "label calls; expected 4 and 1")
-    last_img = RangeImage(*(f[n - 1] for f in imgs))
+    if len(knn_calls) != 4 or len(label_calls) != L:
+        fail(f"steady sweep of {L} lidar(s) made {len(knn_calls)} k-NN and "
+             f"{len(label_calls)} label calls; expected 4 and {L}")
+    last_img = RangeImage(*(f[n - 1] for f in seqs[0]))
     return knn_calls, label_calls[0], last_img
 
 
@@ -474,9 +523,10 @@ def label_timing(name, case, rounds):
             "graph_ms_by_rounds": {**by_rounds, rounds: g_ms}}
 
 
-def phase_kernels(cfg):
+def phase_kernels(cfg, rig_cfg):
     model = cfg.rig.models[0]
     knn_calls, label_call, img = capture_main_path_inputs(cfg)
+    rig_knn_calls, _, _ = capture_main_path_inputs(rig_cfg, RIG_X)
 
     # ---- K1 correctness
     smem_fn = _build.load("labels").mloam_labels_smem_bytes
@@ -505,6 +555,14 @@ def phase_kernels(cfg):
         chk = check_knn(f"main_path_{name}", q, r, m, k)
         knn_checks.append(chk)
         shapes.append(knn_timing(name, q, r, m, k, chk))
+    # the dual rig: the tracker's calls have the single rig's shapes, the
+    # window's are new (two lidars' queries against a two-lidar map)
+    rig_shapes = []
+    for name, (q, r, m, k) in zip(names, rig_knn_calls):
+        chk = check_knn(f"rig_path_{name}", q, r, m, k)
+        knn_checks.append(chk)
+        if name.startswith("window"):
+            rig_shapes.append(knn_timing(f"rig_{name}", q, r, m, k, chk))
     mapper = mapper_scale_case()
     chk = check_knn(*mapper)
     knn_checks.append(chk)
@@ -536,7 +594,8 @@ def phase_kernels(cfg):
          "library_ms": big["library_ms"],
          "per_sweep_ms": sum(s["ms"] for s in shapes),
          "per_sweep_graph_ms": sum(s["graph_ms"] for s in shapes),
-         "main_path_shapes": shapes, "mapper_scale": mapper_timing},
+         "per_sweep_bound_ms": sum(s["bound_ms"] for s in shapes),
+         "main_path_shapes": shapes + rig_shapes, "mapper_scale": mapper_timing},
     ]
 
 
@@ -544,45 +603,249 @@ def phase_kernels(cfg):
 # main path
 # --------------------------------------------------------------------------
 
-def phase_main_path(cfg, kernels):
+def knn_per_sweep(i, mode_before, n_lidars, window_size):
+    """K2 launches of sweep ``i``: none at sweep 0; from sweep 1 the
+    tracker's two matchers, once per lidar in a sweep that starts in mode 2;
+    from the ``window_size``-th sweep the window solve's two."""
+    if i == 0:
+        return 0
+    return (2 * n_lidars if mode_before == 2 else 2) + (2 if i >= window_size else 0)
+
+
+def expected_knn(modes, n_lidars, window_size, first_mode):
+    """K2 launches over a run whose sweeps ended in ``modes``."""
+    befores = [first_mode] + list(modes[:-1])
+    return sum(knn_per_sweep(i, b, n_lidars, window_size)
+               for i, b in enumerate(befores))
+
+
+def zero_counters():
     hopper_labels.launches = 0
     hopper_knn.launches = 0
+
+
+def check_counters(path, n_labels, n_knn, want_labels, want_knn):
+    if n_labels != want_labels or n_knn != want_knn:
+        fail(f"{path}: launch counters labels {n_labels} (expected {want_labels}), "
+             f"knn {n_knn} (expected {want_knn}) — the run did not go "
+             "through the kernels as expected")
+
+
+def check_trajectory(path, res, n_frames, gate=True):
+    est_t, est_q = res["est_t"], res["est_q"]
+    if est_t.shape != (n_frames, 3) or est_q.shape != (n_frames, 4):
+        fail(f"{path}: trajectory has the wrong shape")
+    if not (np.isfinite(est_t).all() and np.isfinite(est_q).all()):
+        fail(f"{path}: trajectory holds non-finite poses")
+    if gate and not res["ate_m"] < ATE_GATE_M:
+        fail(f"{path}: ATE {res['ate_m']:.4f} m is not under the {ATE_GATE_M} m gate")
+    return float(np.linalg.norm(np.diff(res["gt_t"], axis=0), axis=1).sum())
+
+
+def width(cfg):
+    return {"range_images": [[m.n_rings, m.n_cols] for m in cfg.rig.models],
+            "cap_frame_corner": cfg.odometry.cap_frame_corner,
+            "cap_frame_surf": cfg.odometry.cap_frame_surf,
+            "cap_less_flat": cfg.features.cap_less_flat,
+            "window_size": cfg.odometry.window_size,
+            "opt_window_size": cfg.odometry.opt_window_size}
+
+
+def phase_main_path(cfg):
+    zero_counters()
     res = run_synthetic.run(n_frames=N_FRAMES, seed=0, verbose=False,
                             device=DEV, cfg=cfg)
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
-
     ws = cfg.odometry.window_size
     # one call per sweep, one launch per call
-    want_labels = N_FRAMES
-    # sweep 0 matches nothing; warm-up sweeps run the tracker's two matchers;
-    # from the warm window on, the two map matchers as well
-    want_knn = 2 * (ws - 1) + 4 * (N_FRAMES - ws)
-    if n_labels != want_labels or n_knn != want_knn:
-        fail(f"launch counters: labels {n_labels} (expected {want_labels}), "
-             f"knn {n_knn} (expected {want_knn}) — the run did not go "
-             "through the kernels as expected")
-    est_t, est_q = res["est_t"], res["est_q"]
-    if est_t.shape != (N_FRAMES, 3) or est_q.shape != (N_FRAMES, 4):
-        fail("trajectory has the wrong shape")
-    if not (np.isfinite(est_t).all() and np.isfinite(est_q).all()):
-        fail("trajectory holds non-finite poses")
-    if not res["ate_m"] < ATE_GATE_M:
-        fail(f"ATE {res['ate_m']:.4f} m is not under the {ATE_GATE_M} m gate")
-    path_m = float(np.linalg.norm(np.diff(res["gt_t"], axis=0), axis=1).sum())
+    check_counters("main path", n_labels, n_knn, N_FRAMES,
+                   expected_knn(res["modes"], 1, ws, 0))
+    path_m = check_trajectory("main path", res, N_FRAMES)
     emit({"main_path": {
         "frames": N_FRAMES, "ate_m": res["ate_m"], "path_m": path_m,
         "steady_ms_median": res["steady_ms_median"],
         "steady_fps": res["fps"],
         "launches": {"propagate_labels": n_labels, "knn": n_knn},
-        "width": {"range_image": [cfg.rig.models[0].n_rings, cfg.rig.models[0].n_cols],
-                  "cap_frame_corner": cfg.odometry.cap_frame_corner,
-                  "cap_frame_surf": cfg.odometry.cap_frame_surf,
-                  "cap_less_flat": cfg.features.cap_less_flat,
-                  "window_size": ws,
-                  "opt_window_size": cfg.odometry.opt_window_size},
+        "width": width(cfg),
     }})
-    kernels[0]["launches"] = n_labels
-    kernels[1]["launches"] = n_knn
+    return {"propagate_labels": n_labels, "knn": n_knn}
+
+
+def phase_rig_path(cfg, rig_window_shapes):
+    """The dual rig with its extrinsics installed (mode 0)."""
+    L = cfg.rig.n_lidars
+    zero_counters()
+    res = run_synthetic.run(n_frames=N_FRAMES, seed=0, verbose=False, device=DEV,
+                            cfg=cfg, extrinsics=RIG_X)
+    n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+    if set(res["modes"]) != {0}:
+        fail(f"rig path: left mode 0: {res['modes']}")
+    check_counters("rig path", n_labels, n_knn, L * N_FRAMES,
+                   expected_knn(res["modes"], L, cfg.odometry.window_size, 0))
+    path_m = check_trajectory("rig path", res, N_FRAMES)
+    emit({"rig_path": {
+        "frames": N_FRAMES, "lidars": L, "ate_m": res["ate_m"], "path_m": path_m,
+        "steady_ms_median": res["steady_ms_median"], "steady_fps": res["fps"],
+        "launches": {"propagate_labels": n_labels, "knn": n_knn},
+        "window_knn_shapes": [{k: s[k] for k in ("name", "nq", "nr", "k", "valid_refs")}
+                              for s in rig_window_shapes],
+        "width": width(cfg),
+    }})
+    return {"propagate_labels": n_labels, "knn": n_knn}
+
+
+def phase_calib_path(cfg):
+    """The dual rig from fully unknown extrinsics through 2 -> 1 -> 0; the
+    counters are read after every sweep and checked against the mode the
+    sweep started in. The k-NN inputs of the first warm sweep in mode 2 and
+    of the first sweep in mode 1 are kept, to be held against the plain
+    version after the run."""
+    L = cfg.rig.n_lidars
+    ws = cfg.odometry.window_size
+    per_mode = {m: {"sweeps": 0, "propagate_labels": 0, "knn": 0, "ms": []}
+                for m in (2, 1, 0)}
+    seen = {"before": cfg.rig.extrinsic_mode, "labels": 0, "knn": 0}
+    captured, recording = {}, []
+    real_knn = hopper_knn.knn
+
+    def rec_knn(q, r, m, k):
+        if recording:
+            recording[0].append((q.clone(), r.clone(), m.clone(), k))
+        return real_knn(q, r, m, k)
+
+    def on_sweep(i, out, pipe):
+        before = seen["before"]
+        d_l = hopper_labels.launches - seen["labels"]
+        d_k = hopper_knn.launches - seen["knn"]
+        want_k = knn_per_sweep(i, before, L, ws)
+        if d_l != L or d_k != want_k:
+            fail(f"calibration path, sweep {i} (started in mode {before}): "
+                 f"labels {d_l} (expected {L}), knn {d_k} (expected {want_k})")
+        rec = per_mode[before]
+        rec["sweeps"] += 1
+        rec["propagate_labels"] += d_l
+        rec["knn"] += d_k
+        if recording:
+            captured[before] = recording.pop()
+        seen.update(before=out.ext_mode, labels=hopper_labels.launches,
+                    knn=hopper_knn.launches, pipe=pipe)
+        if i + 1 >= ws and out.ext_mode in (2, 1) and out.ext_mode not in captured:
+            recording.append([])
+
+    if cfg.rig.extrinsic_mode != 2:
+        fail("calibration path: the rig does not start in mode 2")
+    zero_counters()
+    hopper_knn.knn = rec_knn
+    try:
+        res = run_synthetic.run(n_frames=CALIB_FRAMES, seed=0, verbose=False,
+                                device=DEV, cfg=cfg, extrinsics=CALIB_X,
+                                install_extrinsics=False, wobble=0.25,
+                                on_sweep=on_sweep)
+    finally:
+        hopper_knn.knn = real_knn
+    n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+    modes = res["modes"]
+    check_counters("calibration path", n_labels, n_knn, L * CALIB_FRAMES,
+                   expected_knn(modes, L, ws, 2))
+    check_trajectory("calibration path", res, CALIB_FRAMES, gate=False)
+    for before, dt in zip([2] + modes[:-1], res["sweep_ms"]):
+        per_mode[before]["ms"].append(dt)
+    init = next((i for i, m in enumerate(modes) if m < 2), None)
+    frozen = next((i for i, m in enumerate(modes) if m == 0), None)
+    errs = [e[0] for e in res["ext_err"]]   # lidar 1's (rad, m) per sweep
+    rot_err, pos_err = errs[-1]
+    ext_cov = seen["pipe"].ext_cov
+    emit({"calib_path": {
+        "frames": CALIB_FRAMES, "lidars": L, "wobble": 0.25,
+        "transitions": {"init_done": init, "frozen": frozen},
+        "jax_record": JAX_CALIB_RECORD,
+        "final_rot_err_rad": rot_err, "final_pos_err_m": pos_err,
+        "ext_cov_trace": [float(np.trace(c)) for c in ext_cov]
+        if ext_cov is not None else None,
+        "ate_m": res["ate_m"],
+        "modes": "".join(str(m) for m in modes),
+        "rot_err_trace_rad": [e[0] for e in errs],
+        "pos_err_trace_m": [e[1] for e in errs],
+        "per_mode": {str(m): {**{k: v for k, v in r.items() if k != "ms"},
+                              "ms_median": float(np.median(r["ms"])) if r["ms"] else None}
+                     for m, r in per_mode.items()},
+        "launches": {"propagate_labels": n_labels, "knn": n_knn},
+    }})
+    if init is None or frozen is None:
+        fail(f"calibration path: the lifecycle did not complete in {CALIB_FRAMES} "
+             f"sweeps (modes {''.join(str(m) for m in modes)})")
+    if not (rot_err < CALIB_ROT_GATE_RAD and pos_err < CALIB_POS_GATE_M):
+        fail(f"calibration path: final extrinsic error {rot_err:.5f} rad / "
+             f"{pos_err:.4f} m is not under {CALIB_ROT_GATE_RAD} rad / "
+             f"{CALIB_POS_GATE_M} m")
+    if set(captured) != {2, 1}:
+        fail(f"calibration path: no warm sweep captured in mode(s) "
+             f"{sorted({2, 1} - set(captured))}")
+    return {"propagate_labels": n_labels, "knn": n_knn}, captured
+
+
+def calib_knn_checks(captured, L):
+    """Hold the calibration path's k-NN calls against the plain version and
+    time its window calls: in mode 2 every lidar's tracker and a window
+    matched against the reference lidar alone, in mode 1 the reference
+    tracker and a window with the extrinsic blocks."""
+    names = {2: [f"tracker_l{l}_{c}" for l in range(L) for c in ("edge", "plane")],
+             1: ["tracker_edge", "tracker_plane"]}
+    checks, shapes = [], []
+    for mode, calls in sorted(captured.items(), reverse=True):
+        want = names[mode] + ["window_edge", "window_plane"]
+        if len(calls) != len(want):
+            fail(f"calibration path, mode {mode}: a warm sweep made {len(calls)} "
+                 f"k-NN calls; expected {len(want)}")
+        for name, (q, r, m, k) in zip(want, calls):
+            chk = check_knn(f"calib_mode{mode}_{name}", q, r, m, k)
+            checks.append(chk)
+            if name.startswith("window"):
+                shapes.append(knn_timing(f"calib_mode{mode}_{name}", q, r, m, k, chk))
+    return checks, shapes
+
+
+def phase_presets():
+    """A few sweeps of three shipped presets at their own sensor shapes. The
+    first label-propagation call at each shape is kept, to be held against
+    the plain version after the run."""
+    captured = {}
+    real_labels = hopper_labels.propagate_labels
+
+    def rec_labels(labels, ch, cv, rounds=3):
+        shape = tuple(labels.shape)
+        if shape not in captured:
+            captured[shape] = (labels.clone(), ch.clone(), cv.clone(), rounds)
+        return real_labels(labels, ch, cv, rounds)
+
+    runs, counts, by_shape = {}, {}, {}
+    for name, cfg, ext in (("oxford", platforms.oxford(), RIG_X),
+                           ("kitti", platforms.kitti(), None),
+                           ("vehicle_hercules", platforms.vehicle_hercules(), HERCULES_X)):
+        L = cfg.rig.n_lidars
+        zero_counters()
+        hopper_labels.propagate_labels = rec_labels
+        try:
+            res = run_synthetic.run(n_frames=PRESET_FRAMES, seed=2, verbose=False,
+                                    device=DEV, cfg=cfg, extrinsics=ext)
+        finally:
+            hopper_labels.propagate_labels = real_labels
+        n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+        mode = cfg.rig.extrinsic_mode if L > 1 else 0
+        check_counters(name, n_labels, n_knn, L * PRESET_FRAMES,
+                       expected_knn(res["modes"], L, cfg.odometry.window_size, mode))
+        check_trajectory(name, res, PRESET_FRAMES, gate=False)
+        counts[name] = {"propagate_labels": n_labels, "knn": n_knn}
+        for shape in {(m.n_rings, m.n_cols) for m in cfg.rig.models}:
+            # each preset's lidars share one sensor model
+            by_shape[shape] = by_shape.get(shape, 0) + n_labels
+        runs[name] = {"frames": PRESET_FRAMES, "lidars": L,
+                      "modes": "".join(str(m) for m in res["modes"]),
+                      "ate_m": res["ate_m"],
+                      "steady_ms_median": res["steady_ms_median"],
+                      "launches": counts[name], "width": width(cfg)}
+    emit({"presets": runs})
+    return counts, captured, by_shape
 
 
 def main():
@@ -591,8 +854,38 @@ def main():
     phase_build()
     cfg = platforms.synthetic(n_lidars=1)
     assert cfg.rig.models[0] == LidarModel(n_rings=16, n_cols=1800)
-    kernels = phase_kernels(cfg)
-    phase_main_path(cfg, kernels)
+    rig_cfg = platforms.synthetic(n_lidars=2, extrinsic_mode=0)
+    kernels = phase_kernels(cfg, rig_cfg)
+    k1, k2 = kernels
+    by_path = {"main_path": phase_main_path(cfg)}
+    rig_window = [s for s in k2["main_path_shapes"] if s["name"].startswith("rig_")]
+    by_path["rig_path"] = phase_rig_path(rig_cfg, rig_window)
+    by_path["calib_path"], calib_captured = phase_calib_path(
+        platforms.synthetic(n_lidars=2, extrinsic_mode=2))
+    preset_counts, captured, by_shape = phase_presets()
+    by_path.update(preset_counts)
+
+    # K2 at the calibration path's shapes, on the inputs that path gave it
+    calib_checks, calib_shapes = calib_knn_checks(calib_captured, rig_cfg.rig.n_lidars)
+    emit({"kernel_checks": {"knn_calib": calib_checks}})
+    k2["main_path_shapes"] += calib_shapes
+    k2["max_abs_err"] = max([k2["max_abs_err"]] + [c["max_abs_err"] for c in calib_checks])
+
+    # K1 at the presets' shapes, on the inputs those paths gave it
+    preset_checks = []
+    for shape, (lab, ch, cv, rounds) in sorted(captured.items()):
+        preset_checks += check_labels(f"presets_{shape[0]}x{shape[1]}", (lab, ch, cv),
+                                      (rounds,))
+    emit({"kernel_checks": {"labels_presets": preset_checks}})
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in preset_checks])
+    for other in k1["other_shapes"]:
+        shape = tuple(other["shape"])
+        other["launches"] = by_shape.get(shape, 0)
+        if other["launches"] == 0:
+            fail(f"labels: no path launched the kernel at {shape}")
+    for kern, key in ((k1, "propagate_labels"), (k2, "knn")):
+        kern["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        kern["launches"] = sum(kern["launches_by_path"].values())
     emit({"kernels": kernels})
     emit({"seconds": round(time.perf_counter() - t0, 1),
           "package": mloam_tpu_torch.__version__})

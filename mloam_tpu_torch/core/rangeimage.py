@@ -1,9 +1,9 @@
 """Range-image schema of spinning-LiDAR sweeps.
 
 The range image *is* the canonical scan tensor: all frontend ops are dense
-[R, C] tensor programs. Counterpart of ``mloam_tpu/core/rangeimage.py``
-(``project`` for unordered clouds and the HDL-64 ring table are not ported
-yet).
+[R, C] tensor programs. Counterpart of ``mloam_tpu/core/rangeimage.py``:
+``project`` takes an unordered cloud into the grid, ``hdl64_ring_table`` is
+the HDL-64's non-uniform beam ladder.
 """
 
 from __future__ import annotations
@@ -43,8 +43,91 @@ class LidarModel(NamedTuple):
     ring_elevations_deg: tuple | None = None
 
 
+def hdl64_ring_table() -> tuple:
+    """The HDL-64's non-uniform beam ladder: the upper 32 beams at 1/3 deg
+    spacing from +2 down to -8.33 deg, the lower 32 at 1/2 deg from -8.83
+    down to -24.33 deg, returned ASCENDING (ring 0 = the -24.33 bottom
+    beam) to match this module's row convention."""
+    upper = [2.0 - i / 3.0 for i in range(32)]
+    lower = [-8.83 - i / 2.0 for i in range(32)]
+    return tuple(reversed(upper + lower))
+
+
 def _col_time(r: int, c: int, dtype, device) -> torch.Tensor:
     return (torch.arange(c, dtype=dtype, device=device) / c).expand(r, c)
+
+
+def _deg2rad(deg, dtype, device) -> torch.Tensor:
+    """Degrees to radians in ``dtype`` (converted first, then scaled)."""
+    return torch.deg2rad(torch.as_tensor(deg, dtype=dtype, device=device))
+
+
+def project(
+    xyz: torch.Tensor,
+    mask: torch.Tensor,
+    model: LidarModel,
+    intensity: torch.Tensor | None = None,
+) -> RangeImage:
+    """Project a flat padded cloud [N, 3] into a range image.
+
+    Collisions keep the *closest* return per cell: a scatter-min on range,
+    then a scatter-min on the point index among the points at that range, so
+    exact ties go to the lowest index. Payloads are gathered from the
+    winner. Relative time is derived from the azimuth column assuming a
+    uniform sweep starting at the -x axis.
+    """
+    r, c = model.n_rings, model.n_cols
+    dtype, dev = xyz.dtype, xyz.device
+    rng = torch.linalg.norm(xyz, dim=-1)
+    ok = mask & (rng > model.min_range) & (rng < model.max_range)
+
+    azimuth = torch.atan2(xyz[:, 1], xyz[:, 0])  # [-pi, pi)
+    col = torch.floor((azimuth + math.pi) / (2 * math.pi) * c).to(torch.int64)
+    col = torch.clamp(col, 0, c - 1)
+
+    horiz = torch.linalg.norm(xyz[:, :2], dim=-1)
+    vert = torch.atan2(xyz[:, 2], torch.clamp(horiz, min=1e-9))
+    if model.ring_elevations_deg is not None:
+        # non-uniform beam table: nearest-elevation binning, in the field of
+        # view when within half the local ring gap of the nearest beam
+        elev = _deg2rad(model.ring_elevations_deg, dtype, dev)
+        d = torch.abs(vert[:, None] - elev[None, :])             # [N, R]
+        near, ring = torch.min(d, dim=1)
+        gaps = torch.diff(elev)
+        half_gap = 0.5 * torch.cat([
+            gaps[:1], torch.minimum(gaps[:-1], gaps[1:]), gaps[-1:]])
+        ok = ok & (near <= half_gap[ring] * 1.001)
+    else:
+        fov_up = _deg2rad(model.fov_up_deg, dtype, dev)
+        fov_down = _deg2rad(model.fov_down_deg, dtype, dev)
+        ring_f = (vert - fov_down) / (fov_up - fov_down) * (r - 1)
+        ring = torch.round(ring_f).to(torch.int64)
+        ok = ok & (ring_f > -0.5) & (ring_f < r - 0.5)
+        ring = torch.clamp(ring, 0, r - 1)
+
+    flat = ring * c + col
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    img_rng = torch.full((r * c,), float("inf"), dtype=dtype, device=dev) \
+        .scatter_reduce(0, flat, torch.where(ok, rng, inf), "amin")
+    winner = ok & (rng == img_rng[flat])
+    big = torch.iinfo(torch.int64).max
+    idx = torch.arange(xyz.shape[0], device=dev)
+    img_idx = torch.full((r * c,), big, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, flat, torch.where(winner, idx, big), "amin")
+    cell_valid = torch.isfinite(img_rng)
+    src = torch.where(cell_valid, img_idx, 0)
+
+    img_xyz = xyz[src].reshape(r, c, 3)
+    img_int = (intensity[src] if intensity is not None
+               else torch.zeros((r * c,), dtype=dtype, device=dev)).reshape(r, c)
+    valid2d = cell_valid.reshape(r, c)
+    return RangeImage(
+        xyz=torch.where(valid2d[..., None], img_xyz, 0.0),
+        rng=torch.where(cell_valid, img_rng, 0.0).reshape(r, c),
+        valid=valid2d,
+        time=_col_time(r, c, dtype, dev),
+        intensity=torch.where(valid2d, img_int, 0.0),
+    )
 
 
 def from_grid(xyz: torch.Tensor, valid: torch.Tensor,

@@ -1,35 +1,57 @@
-"""End-to-end odometry pipeline assembly: single-LiDAR, sweep to pose.
+"""End-to-end odometry pipeline assembly: single- or multi-LiDAR, sweep to
+pose, with the online extrinsic calibration lifecycle.
 
 Counterpart of ``mloam_tpu/models/pipeline.py:OdometryPipeline``. PyTorch
 runs eagerly, so what the JAX package fuses into one jitted program per sweep
 is plain composition here; the method names are kept so a reader finds the
 counterpart:
 
-  first sweep     frontend + ``_push_first``
-  warm-up         frontend + ``_track`` + ``_push_only``
-  window full     ``_fused_step_impl``: frontend + tracker + de-skew + window
-                  solve + marginalization (``_window_all``)
+  first sweep     frontends + ``_push_first``
+  warm-up         frontends + ``_track`` + ``_push_only``
+  window full     ``_window_step_impl`` (push + window solve +
+                  marginalization), in modes 2 and 1 after the tracker(s)
+  steady          ``_fused_step_impl``: frontends + reference tracker +
+                  de-skew + window solve over all lidars + marginalization
+                  (``ext_mode`` 0, window full); the JAX package's
+                  ``_fused_step_impl`` (one lidar) and ``_fused_multi_impl``
+                  (unrolled per-lidar frontends) in one.
 
-The JAX package runs its first sweep with a full window unfused (the "warm
-window" step) and fuses the steady ones; with nothing to fuse the two are
-the same code here, so every sweep from the ``window_size``-th on takes
-``_fused_step_impl``. Its three stages run under the stage timers
-``odom_mea_pre`` / ``odom_tracker`` / ``odom_solver`` (``utils/timing``).
+The calibration lifecycle (ESTIMATE_EXTRINSIC, a per-rig setting):
 
-Per sweep the hand-written kernels run once for label propagation
-(``ops/hopper_labels``) and four times for k-NN (``ops/hopper_knn``: two
-scan-to-scan matchers in the tracker, two map matchers in the window solve).
+  2  no prior: every lidar is tracked scan-to-scan on its own; motions
+     composed over ``calib.pair_stride`` sweeps are paired with the
+     reference lidar's in a hand-eye buffer when screw-consistent; the window
+     solve matches the reference lidar only. When the hand-eye rotation
+     converges for every lidar the extrinsics are installed and the mode
+     drops to 1.
+  1  refinement: extrinsic blocks join the window tangent; whenever an
+     extrinsic Hessian block is well-conditioned the estimate is collected;
+     after ``calib.n_calib_samples`` the Lie mean is frozen in, the
+     marginalization prior is discarded and the mode drops to 0.
+  0  pure odometry with fixed extrinsics, all lidars contributing.
 
-Not ported yet, each refused with ``NotImplementedError``: multi-LiDAR rigs
-(and with them the online calibration lifecycle, ``ext_mode`` 1/2),
-``process_chunk``, the tracker-less steady path (``skip_steady``), and the
-mapping / loop-closure pipelines.
+Modes 2 and 1 read the device on the host (the hand-eye gate, the extrinsic
+blocks' eigenvalues), as the JAX package does; the steady mode-0 step does
+not. The first sweep with a full window runs the steady step (the JAX
+package runs it unfused; with nothing to fuse the two are the same code).
+Each sweep's three stages run under the stage timers ``odom_mea_pre`` /
+``odom_tracker`` / ``odom_solver`` (``utils/timing``).
+
+Per sweep the hand-written kernels run once per lidar for label propagation
+(``ops/hopper_labels``) and for k-NN (``ops/hopper_knn``) twice per tracker
+(one tracker, or one per lidar in mode 2) and twice in the window solve.
+
+Not ported yet, each refused with ``NotImplementedError``: the tracker-less
+steady path (``skip_steady``) and the mapping / loop-closure pipelines. The
+JAX package's opt-in vmapped frontend for uniform rigs (an environment
+switch it measured slower than the unrolled default) has no counterpart.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mloam_tpu_torch import resolve_device
@@ -43,6 +65,7 @@ from mloam_tpu_torch.frontend import segmentation as S
 from mloam_tpu_torch.frontend.features import (FeatCloud, FeatureFrame,
                                                downsample_featcloud)
 from mloam_tpu_torch.odometry import estimator as E
+from mloam_tpu_torch.odometry import initializer as I
 from mloam_tpu_torch.odometry import tracker as TR
 from mloam_tpu_torch.utils import timing
 
@@ -70,30 +93,32 @@ class OdometryOutput(NamedTuple):
     win_support_neff: torch.Tensor | None = None
 
 
-def _stack1(f: FeatCloud) -> FeatCloud:
-    """[N, ...] -> [L=1, N, ...]."""
-    return FeatCloud(*(x[None] for x in f))
+def _stack(fs) -> FeatCloud:
+    """L clouds [N, ...] -> one [L, N, ...] (a view when L == 1)."""
+    if len(fs) == 1:
+        return FeatCloud(*(x[None] for x in fs[0]))
+    return FeatCloud(*(torch.stack(x) for x in zip(*fs)))
+
+
+def _index(tree, k):
+    """Slot ``k`` of every field of a (named) tuple of stacked arrays."""
+    return type(tree)(*(f[k] for f in tree))
 
 
 class OdometryPipeline:
-    """Single-LiDAR odometry front-to-back (no mapping backend).
+    """Single- or multi-LiDAR odometry front-to-back (no mapping backend).
 
-    Call ``process(imgs)`` once per sweep with a list holding one RangeImage
-    (or PackedFrame). Returns an OdometryOutput. Runs on ``device`` — the GPU
-    unless the caller passes another; raises when that device is absent.
+    Call ``process(imgs)`` once per sweep with a list of L synchronized
+    RangeImages (or PackedFrames), one per lidar. Returns an OdometryOutput.
+    Runs on ``device`` — the GPU unless the caller passes another; raises
+    when that device is absent.
     """
 
     def __init__(self, cfg: MloamConfig, device=None):
         self.device = resolve_device(device)
-        L = cfg.rig.n_lidars
-        if L > 1:
-            raise NotImplementedError(
-                "n_lidars > 1: the multi-LiDAR steady step, and with it "
-                "ext_mode 1/2, is not ported yet (ROADMAP: multi-lidar step, "
-                "then A9)")
         # the window solve refuses what it has not ported; fail at
         # construction, not at the first warm sweep
-        E.refuse_unported(cfg, calibrate_ext=False, analytic=True)
+        E.refuse_unported(cfg, analytic=True)
         if cfg.tracker.skip_steady:
             raise NotImplementedError(
                 "tracker.skip_steady=True: the tracker-less steady path is "
@@ -108,17 +133,40 @@ class OdometryPipeline:
         self.reset()
 
     def reset(self):
-        """Reset all mutable state."""
+        """Reset all mutable state (the reference's restart semantics)."""
         cfg = self.cfg
+        L = cfg.rig.n_lidars
+        dev = self.device
         self.frame_idx = 0
-        self.ext_mode = 0
+        self.ext_mode = cfg.rig.extrinsic_mode if L > 1 else 0
         self.window = E.init_window(
             cfg, cfg.odometry.cap_frame_corner, cfg.odometry.cap_frame_surf,
-            device=self.device)
-        self.prev_feats: list[FeatureFrame | None] = [None]
-        self.last_outlier: list = [None]
-        self.motions: list[Pose] = [Pose.identity(device=self.device)]
-        self.world_pose: Pose = Pose.identity(device=self.device)
+            device=dev)
+        if self.ext_mode == 1:
+            # starting directly in refinement mode: the marginalization
+            # prior spans [opt poses | extrinsic blocks] from frame 0
+            self.window = E.reset_prior(self.window, cfg, calibrate_ext=True)
+        self.prev_feats: list[FeatureFrame | None] = [None] * L
+        self.last_outlier: list = [None] * L
+        self.motions: list[Pose] = [Pose.identity(device=dev) for _ in range(L)]
+        self.world_pose: Pose = Pose.identity(device=dev)
+        self.calib_buffers = [I.MotionBuffer.empty(cfg.calib.n_pose_buffer, dev)
+                              for _ in range(L)]
+        # per-lidar motion accumulated over calib.pair_stride sweeps: longer
+        # baselines raise the pair SNR (tracker noise is absolute while the
+        # signal grows with the stride)
+        self.pair_accum: list[Pose] = [Pose.identity(device=dev) for _ in range(L)]
+        self.ext_samples: list[list] = [[] for _ in range(L)]
+        self.ext_cov: np.ndarray | None = None
+
+    def set_extrinsics(self, ext: Pose):
+        """Install known extrinsics [L] (base <- lidar; lidar 0 the
+        reference, its extrinsic the identity). In mode 1 the prior is re-initialized so the extrinsic
+        prior rows pull toward the installed values."""
+        self.window = E.set_extrinsics(self.window, Pose(
+            ext.q.to(self.device, torch.float32), ext.t.to(self.device, torch.float32)))
+        if self.ext_mode == 1:
+            self.window = E.reset_prior(self.window, self.cfg, calibrate_ext=True)
 
     # ---------------- per-sweep stages ----------------
 
@@ -158,52 +206,181 @@ class OdometryPipeline:
         )
         return ff, corner, surf, outlier
 
+    def _frontends(self, imgs):
+        """Every lidar's frontend: (ffs, corners, surfs, outliers) lists."""
+        outs = [self._frontend_impl(img, l) for l, img in enumerate(imgs)]
+        return tuple(list(x) for x in zip(*outs))
+
     def _track(self, prev: FeatureFrame, curr: FeatureFrame, T: Pose):
         return TR.track(prev, curr, T, self.cfg.tracker)
 
-    def _prep_frame(self, motion0: Pose, corner: FeatCloud, surf: FeatCloud):
-        """De-skew with the sweep motion and stack to [L=1, ...]."""
-        if self.cfg.tracker.deskew:
-            corner = TR.deskew_features(motion0, corner)
-            surf = TR.deskew_features(motion0, surf)
-        return _stack1(corner), _stack1(surf)
+    def _prep_frame(self, ext: Pose, motion0: Pose, motions, corners, surfs,
+                    mode2: bool):
+        """De-skew per lidar with its own sweep motion and stack to [L, ...].
 
-    def _push_only(self, window, world_pose, motion0, corner, surf):
+        Lidar l's motion is the reference motion seen through its extrinsic,
+        E⁻¹∘M∘E; in mode 2 (extrinsics unknown) lidars l > 0 use their own
+        tracked motion. The reference lidar is the base frame (its extrinsic
+        is the identity), so it takes the reference motion as it is."""
+        if not self.cfg.tracker.deskew:
+            return _stack(corners), _stack(surfs)
+        cs, ss = [], []
+        for l in range(self.cfg.rig.n_lidars):
+            if l == 0:
+                m_l = motion0
+            elif mode2:
+                m_l = motions[l]
+            else:
+                El = Pose(ext.q[l], ext.t[l])
+                m_l = se3.compose(se3.compose(se3.inverse(El), motion0), El)
+            cs.append(TR.deskew_features(m_l, corners[l]))
+            ss.append(TR.deskew_features(m_l, surfs[l]))
+        return _stack(cs), _stack(ss)
+
+    def _push_only(self, window, world_pose, motion0, motions, corners, surfs,
+                   mode2):
         pred = se3.compose(world_pose, motion0)
-        corner, surf = self._prep_frame(motion0, corner, surf)
+        corner, surf = self._prep_frame(window.ext, motion0, motions,
+                                        corners, surfs, mode2)
         window = E.push_frame(window, pred, corner, surf, self.cfg)
         return window, pred
 
-    def _push_first(self, window, world_pose, corner, surf):
-        return E.push_frame(window, world_pose, _stack1(corner),
-                            _stack1(surf), self.cfg)
+    def _push_first(self, window, world_pose, corners, surfs):
+        return E.push_frame(window, world_pose, _stack(corners),
+                            _stack(surfs), self.cfg)
 
-    def _window_all(self, window, world_pose, motion0, corner, surf):
+    def _window_step_impl(self, window, world_pose, motion0, motions,
+                          corners, surfs, mode2, calibrate_ext, lidars):
+        """Push + window solve + marginalization. The JAX package's
+        ``_window_ref`` (mode 2: ``lidars=(0,)``), ``_window_calib`` (mode 1:
+        ``calibrate_ext``) and ``_window_all`` (mode 0)."""
         pred = se3.compose(world_pose, motion0)
-        corner, surf = self._prep_frame(motion0, corner, surf)
+        corner, surf = self._prep_frame(window.ext, motion0, motions,
+                                        corners, surfs, mode2)
         window = E.push_frame(window, pred, corner, surf, self.cfg)
-        window, solve = E.optimize_window(window, self.cfg, False, (0,))
-        window = E.marginalize_pivot(window, solve, self.cfg, False)
+        window, solve = E.optimize_window(window, self.cfg, calibrate_ext,
+                                          lidars)
+        window = E.marginalize_pivot(window, solve, self.cfg, calibrate_ext)
         refined = Pose(window.poses.q[-1], window.poses.t[-1])
         return window, solve, pred, refined
 
-    def _fused_step_impl(self, window, world_pose, motion0, prev_feat0, img):
-        """Whole-sweep step of the single-lidar pure-odometry path once the
-        window is full: frontend + tracker + de-skew + window solve +
-        marginalization, each stage under its timer."""
+    def _fused_step_impl(self, window, world_pose, motion0, prev_feat0, imgs):
+        """Whole-sweep step of the steady pure-odometry phase (ext_mode 0,
+        window full): every lidar's frontend, the reference-lidar tracker,
+        de-skew of every lidar through its extrinsic, window solve over all
+        lidars' correspondences and marginalization, each stage under its
+        timer."""
+        L = self.cfg.rig.n_lidars
         with timing.timer("odom_mea_pre"):
-            ff, corner, surf, outlier = self._frontend_impl(img, 0)
+            ffs, corners, surfs, outliers = self._frontends(imgs)
         with timing.timer("odom_tracker"):
-            res, desk = self._track(prev_feat0, ff, motion0)
+            res, desk = self._track(prev_feat0, ffs[0], motion0)
         with timing.timer("odom_solver"):
-            window, solve, pred, refined = self._window_all(
-                window, world_pose, res.pose, corner, surf)
-        return window, refined, res.pose, desk, pred, solve, outlier, res.eig
+            window, solve, pred, refined = self._window_step_impl(
+                window, world_pose, res.pose, (res.pose,) * L, corners, surfs,
+                mode2=False, calibrate_ext=False, lidars=tuple(range(L)))
+        return (window, refined, res.pose, desk, pred, solve, tuple(outliers),
+                res.eig)
 
+    def _steady(self, imgs) -> tuple:
+        """One steady sweep: the fused step, and the host state it moves."""
+        (self.window, refined, motion, desk, pred, solve, outliers,
+         trk_eig) = self._fused_step_impl(
+            self.window, self.world_pose, self.motions[0],
+            self.prev_feats[0], imgs)
+        self.motions[0] = motion
+        self.prev_feats[0] = desk
+        self.last_outlier = list(outliers)
+        self.world_pose = refined
+        self.frame_idx += 1
+        return refined, pred, solve, trk_eig
+
+    def _is_steady(self) -> bool:
+        return self.ext_mode == 0 and self.frame_idx >= self.cfg.odometry.window_size
+
+    @torch.no_grad()
     def process_chunk(self, imgs_stacked):
-        raise NotImplementedError(
-            "process_chunk: the chunked replay path is not ported yet "
-            "(ROADMAP: multi-lidar step + process_chunk)")
+        """Process K synchronized sweeps (replay). Preconditions: the steady
+        step must be active (warm window, pure odometry). ``imgs_stacked``:
+        for L == 1 a RangeImage/PackedFrame with a leading K axis; for L > 1
+        a tuple of L such.
+
+        Returns per-frame stacked (pose_q [K,4], pose_t [K,3], pred_q,
+        pred_t, cost, n_corner, n_surf). The state advances exactly as K
+        ``process`` calls would: the same step in the same order."""
+        L = self.cfg.rig.n_lidars
+        if not self._is_steady():
+            raise RuntimeError(
+                "process_chunk requires the steady pure-odometry phase "
+                "(ext_mode 0, window full)")
+        per_lidar = (imgs_stacked,) if L == 1 else tuple(imgs_stacked)
+        if len(per_lidar) != L:
+            raise ValueError(f"process_chunk: {len(per_lidar)} sequences for {L} lidars")
+        k = per_lidar[0][0].shape[0]
+        ys = []
+        for i in range(k):
+            refined, pred, solve, _ = self._steady([_index(x, i) for x in per_lidar])
+            ys.append((refined.q, refined.t, pred.q, pred.t, solve.cost,
+                       solve.n_corner, solve.n_surf))
+        return tuple(torch.stack(y) for y in zip(*ys))
+
+    # ---------------- calibration lifecycle ----------------
+
+    def _try_init_calib(self):
+        """Hand-eye solve for every non-ref lidar; install on convergence."""
+        cfg = self.cfg
+        exts = [Pose.identity(device=self.device)]
+        for l in range(1, cfg.rig.n_lidars):
+            est, rsol = I.calibrate(self.calib_buffers[l],
+                                    planar=cfg.calib.planar,
+                                    sv_threshold=cfg.calib.rot_converge_sv)
+            if not bool(rsol.converged):
+                return
+            exts.append(est)
+        ext = Pose(torch.stack([e.q for e in exts]),
+                   torch.stack([e.t for e in exts]))
+        self.window = E.set_extrinsics(self.window, ext)
+        self.window = E.reset_prior(self.window, cfg, calibrate_ext=True)
+        self.ext_mode = 1
+
+    def _collect_calib_sample(self, solve):
+        """Extrinsic voting: collect samples whenever an extrinsic Hessian
+        block is well-conditioned; freeze the Lie mean after
+        n_calib_samples."""
+        cfg = self.cfg
+        L = cfg.rig.n_lidars
+        n_opt = cfg.odometry.opt_window_size + 1
+        eig = solve.eig_min.cpu().numpy()
+        done = True
+        for l in range(1, L):
+            if eig[n_opt + (l - 1)] > cfg.calib.lambda_threshold:
+                self.ext_samples[l].append(
+                    (self.window.ext.q[l].cpu().numpy(),
+                     self.window.ext.t[l].cpu().numpy()))
+            if len(self.ext_samples[l]) < cfg.calib.n_calib_samples:
+                done = False
+        if not done:
+            return
+        exts_q = [np.array([1.0, 0, 0, 0], np.float32)]
+        exts_t = [np.zeros(3, np.float32)]
+        covs = []
+        for l in range(1, L):
+            qs = torch.from_numpy(np.stack([s[0] for s in self.ext_samples[l]]))
+            ts = torch.from_numpy(np.stack([s[1] for s in self.ext_samples[l]]))
+            # drop the first third (the reference's computeMeanPose)
+            k = qs.shape[0] // 3
+            samples = Pose(qs[k:].to(self.device), ts[k:].to(self.device))
+            mu = se3.mean_pose(samples)
+            cov = se3.tangent_scatter(samples, mu)
+            exts_q.append(mu.q.cpu().numpy())
+            exts_t.append(mu.t.cpu().numpy())
+            covs.append(cov.cpu().numpy())
+        ext = Pose(torch.from_numpy(np.stack(exts_q)).to(self.device),
+                   torch.from_numpy(np.stack(exts_t)).to(self.device))
+        self.ext_cov = np.stack(covs)
+        self.window = E.set_extrinsics(self.window, ext)
+        self.window = E.reset_prior(self.window, cfg, calibrate_ext=False)
+        self.ext_mode = 0
 
     # ---------------- host orchestration ----------------
 
@@ -221,30 +398,21 @@ class OdometryPipeline:
     @torch.no_grad()
     def process(self, imgs: list) -> OdometryOutput:
         cfg = self.cfg
-        assert len(imgs) == 1
+        L = cfg.rig.n_lidars
+        assert len(imgs) == L
 
-        # window full: the whole-sweep step
-        if self.frame_idx >= cfg.odometry.window_size:
-            (self.window, refined, motion, desk, pred,
-             solve, outlier0, trk_eig) = self._fused_step_impl(
-                self.window, self.world_pose, self.motions[0],
-                self.prev_feats[0], imgs[0],
-            )
-            self.motions[0] = motion
-            self.prev_feats[0] = desk
-            self.last_outlier[0] = outlier0
-            self.world_pose = refined
-            self.frame_idx += 1
-            return self._solved_output(refined, pred, solve, trk_eig)
+        # steady pure odometry: the whole-sweep step
+        if self._is_steady():
+            return self._solved_output(*self._steady(imgs))
 
         with timing.timer("odom_mea_pre"):
-            ff, corner, surf, outlier = self._frontend_impl(imgs[0], 0)
-            self.last_outlier[0] = outlier
+            ffs, corners, surfs, outliers = self._frontends(imgs)
+            self.last_outlier = outliers
 
         if self.prev_feats[0] is None:
-            self.prev_feats = [ff]
+            self.prev_feats = ffs
             pose = self.world_pose
-            self.window = self._push_first(self.window, pose, corner, surf)
+            self.window = self._push_first(self.window, pose, corners, surfs)
             self.frame_idx += 1
             zero = torch.zeros((), device=self.device)
             return OdometryOutput(
@@ -253,21 +421,64 @@ class OdometryPipeline:
                 n_corner=zero.to(torch.int64), n_surf=zero.to(torch.int64),
             )
 
-        # --- warm-up: scan-to-scan tracking fills the window, no solve yet
+        # --- scan-to-scan tracking (the reference always; all lidars in
+        # mode 2)
         with timing.timer("odom_tracker"):
-            res0, desk0 = self._track(self.prev_feats[0], ff, self.motions[0])
+            res0, desk0 = self._track(self.prev_feats[0], ffs[0], self.motions[0])
         self.motions[0] = res0.pose
-        self.prev_feats = [desk0]
-        self.window, pred = self._push_only(
-            self.window, self.world_pose, res0.pose, corner, surf)
-        self.world_pose = pred
-        self.frame_idx += 1
-        return OdometryOutput(
-            pose=pred, pose_predict=pred, extrinsics=self.window.ext,
-            ext_mode=self.ext_mode, cost=res0.cost,
-            n_corner=res0.n_edge, n_surf=res0.n_plane,
-            trk_eig=res0.eig,
+        new_prev = [desk0]
+        mode2 = self.ext_mode == 2
+        if mode2:
+            self.pair_accum[0] = se3.compose(self.pair_accum[0], res0.pose)
+            for l in range(1, L):
+                res_l, desk_l = self._track(self.prev_feats[l], ffs[l],
+                                            self.motions[l])
+                self.motions[l] = res_l.pose
+                new_prev.append(desk_l)
+                self.pair_accum[l] = se3.compose(self.pair_accum[l], res_l.pose)
+            if self.frame_idx % cfg.calib.pair_stride == 0:
+                for l in range(1, L):
+                    self.calib_buffers[l] = I.add_pair(
+                        self.calib_buffers[l], self.pair_accum[0],
+                        self.pair_accum[l],
+                        eps_r=cfg.calib.screw_rot_epsilon,
+                        eps_t=cfg.calib.screw_trans_epsilon)
+                self.pair_accum = [Pose.identity(device=self.device)
+                                   for _ in range(L)]
+                self._try_init_calib()
+        else:
+            new_prev += ffs[1:]
+        self.prev_feats = new_prev
+
+        step_args = (
+            self.window, self.world_pose, res0.pose, tuple(self.motions),
+            tuple(corners), tuple(surfs),
         )
+        if self.frame_idx >= cfg.odometry.window_size:
+            # the solve follows the mode as it stands now (a hand-eye success
+            # this sweep already solves with the extrinsic blocks), the
+            # de-skew the mode the sweep was tracked in
+            calibrate_ext = self.ext_mode == 1
+            lidars = (0,) if self.ext_mode == 2 else tuple(range(L))
+            with timing.timer("odom_solver"):
+                self.window, solve, pred, refined = self._window_step_impl(
+                    *step_args, mode2=mode2, calibrate_ext=calibrate_ext,
+                    lidars=lidars)
+            self.world_pose = refined
+            if self.ext_mode == 1:
+                self._collect_calib_sample(solve)
+            out = self._solved_output(refined, pred, solve, res0.eig)
+        else:
+            self.window, pred = self._push_only(*step_args, mode2=mode2)
+            self.world_pose = pred
+            out = OdometryOutput(
+                pose=pred, pose_predict=pred, extrinsics=self.window.ext,
+                ext_mode=self.ext_mode, cost=res0.cost,
+                n_corner=res0.n_edge, n_surf=res0.n_plane,
+                trk_eig=res0.eig,
+            )
+        self.frame_idx += 1
+        return out
 
 
 class FullPipeline:

@@ -1,9 +1,11 @@
 """Per-platform configuration presets.
 
-Counterpart of ``mloam_tpu/models/platforms.py``. Ported so far: the sensor
-constants, the rig budget rule and the simulator fixture platform
-(``synthetic``); the other presets follow the multi-LiDAR and calibration
-paths they configure.
+Counterpart of ``mloam_tpu/models/platforms.py`` (the reference's yaml
+config set): SR (simulated jackal, 2x VLP-16), RHD (handheld, 2x VLP-16), RV
+Hercules (vehicle, 4x VLP-16), Oxford (2x HDL-32), KITTI (1x HDL-64), and the
+simulator fixture platform. The two operating points ``realtime_tuned`` and
+``indoor_degenerate`` are not ported: they need good-feature selection and
+the armed degeneracy gate (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 from mloam_tpu_torch.config import LidarRig, MloamConfig
-from mloam_tpu_torch.core.rangeimage import LidarModel
+from mloam_tpu_torch.core.rangeimage import LidarModel, hdl64_ring_table
 
 VLP16 = LidarModel(n_rings=16, n_cols=1800, fov_up_deg=15.0, fov_down_deg=-15.0)
 HDL32 = LidarModel(n_rings=32, n_cols=2160, fov_up_deg=10.67, fov_down_deg=-30.67)
@@ -41,6 +43,40 @@ def _rig_budget(cfg: MloamConfig) -> MloamConfig:
             localmap_precap_surf=5 * surf,
         ),
     )
+
+
+def simu_jackal(n_lidars: int = 2, extrinsic_mode: int = 2) -> MloamConfig:
+    """SR: config_simu_jackal.yaml (2x VLP-16, online calibration)."""
+    return _rig_budget(MloamConfig(rig=LidarRig(models=(SIM16,) * n_lidars,
+                                                extrinsic_mode=extrinsic_mode)))
+
+
+def handheld(extrinsic_mode: int = 1) -> MloamConfig:
+    """RHD: config_handheld.yaml (2x VLP-16)."""
+    return _rig_budget(MloamConfig(rig=LidarRig(models=(VLP16, VLP16),
+                                                extrinsic_mode=extrinsic_mode)))
+
+
+def vehicle_hercules(extrinsic_mode: int = 1) -> MloamConfig:
+    """RV: config_realvehicle_hercules.yaml (4x VLP-16)."""
+    return _rig_budget(MloamConfig(rig=LidarRig(models=(VLP16,) * 4,
+                                                extrinsic_mode=extrinsic_mode)))
+
+
+def oxford(extrinsic_mode: int = 0) -> MloamConfig:
+    """OR: config_realvehicle_oxford.yaml (2x HDL-32)."""
+    return _rig_budget(MloamConfig(rig=LidarRig(models=(HDL32, HDL32),
+                                                extrinsic_mode=extrinsic_mode)))
+
+
+def kitti() -> MloamConfig:
+    """KITTI: config_realvehicle_kitti.yaml (1x HDL-64, fixed extrinsics),
+    with the HDL-64's two-density beam ladder (uniform elevation binning
+    mis-bins the lower block's 1/2-deg-spaced rings)."""
+    model = HDL64._replace(ring_elevations_deg=hdl64_ring_table())
+    cfg = MloamConfig(rig=LidarRig(models=(model,), extrinsic_mode=0))
+    return dataclasses.replace(
+        cfg, segmenter=dataclasses.replace(cfg.segmenter, ground_rows=30))
 
 
 def synthetic(n_lidars: int = 1, extrinsic_mode: int = 0) -> MloamConfig:

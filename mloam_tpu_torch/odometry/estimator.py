@@ -17,10 +17,15 @@ Design decisions:
     prior (with its linearization poses) rides in the window state and is
     replayed with first-order correction.
 
-Not ported yet, each refused with ``NotImplementedError``: online extrinsic
-calibration (``calibrate_ext=True``), good-feature selection
-(``gf_ratio < 1``), the armed degeneracy gate (``eig_threshold > 0``), loss
-modes other than huber, and the autodiff linearization (``analytic=False``).
+  * Online extrinsic calibration (``calibrate_ext=True``, ESTIMATE_EXTRINSIC
+    1): the extrinsics of lidars 1..L-1 join the tangent after the poses,
+    with a weak prior toward their running estimates, and the local map is
+    formed by the reference lidar only.
+
+Not ported yet, each refused with ``NotImplementedError``: good-feature
+selection (``gf_ratio < 1``), the armed degeneracy gate
+(``eig_threshold > 0``), loss modes other than huber, and the autodiff
+linearization (``analytic=False``).
 
 Feature stacks carry a lidar axis; all lidars' features are projected through
 their extrinsics into the pivot frame.
@@ -44,7 +49,12 @@ from mloam_tpu_torch.solver.marginalization import QuadPrior, schur_marginalize_
 
 
 class WindowState(NamedTuple):
-    """Fixed-shape sliding window. S = window_size + 1 slots, L lidars."""
+    """Fixed-shape sliding window. S = window_size + 1 slots, L lidars.
+
+    The marginalization prior spans [opt poses | non-ref extrinsics] in
+    calibration mode and [opt poses] otherwise; mode transitions
+    re-initialize it (``reset_prior``).
+    """
 
     poses: Pose            # [S] world <- base_i
     corner: FeatCloud      # [S, L, Nc] per-slot per-lidar corner features
@@ -63,10 +73,6 @@ class WindowState(NamedTuple):
 def _tmap(fn, *trees):
     """Map ``fn`` over the tensors of matching NamedTuples."""
     return type(trees[0])(*(fn(*leaves) for leaves in zip(*trees)))
-
-
-def _stack_feat(fs: list[FeatCloud]) -> FeatCloud:
-    return _tmap(lambda *x: torch.stack(x), *fs)
 
 
 def init_window(cfg: MloamConfig, cap_corner: int, cap_surf: int,
@@ -147,8 +153,11 @@ def build_local_map(state: WindowState, cfg: MloamConfig,
                     map_lidars: tuple[int, ...] | None = None):
     """Project window sweeps' features into the pivot frame and voxel-filter.
 
-    ``map_lidars`` restricts which lidars' clouds FORM the map (the reference
-    lidar only during online calibration). None = all lidars (pure odometry).
+    ``map_lidars`` restricts which lidars' clouds FORM the map. During online
+    calibration it is the reference lidar only: if a non-reference lidar's
+    own points entered the map, its factors would match them against
+    themselves, self-consistent at ANY extrinsic, and the extrinsic would
+    never refine. None = all lidars (pure odometry).
     """
     s = cfg.odometry.window_size + 1
     pivot = s - 1 - cfg.odometry.opt_window_size
@@ -198,12 +207,14 @@ class WindowSolveResult(NamedTuple):
     cost: torch.Tensor
     n_corner: torch.Tensor
     n_surf: torch.Tensor
-    eig_min: torch.Tensor  # [O+1] per-opt-pose smallest Hessian eigenvalue
-    # contribution of the per-solve gauge anchor to (H, g) at the final
-    # linearization point. These rows are re-added fresh every solve, so they
-    # must be EXCLUDED from the marginalized Hessian: leaving them in re-bakes
-    # absolute-pose information into the prior every frame (double counting
-    # that grows without bound).
+    eig_min: torch.Tensor  # [n_blocks] per-block smallest Hessian eigenvalue
+    # (opt poses, then the extrinsics in calibration mode)
+    # contribution of the per-solve gauge anchor (+ calibration extrinsic
+    # priors) to (H, g) at the final linearization point. These rows are
+    # re-added fresh every solve, so they must be EXCLUDED from the
+    # marginalized Hessian: leaving them in re-bakes absolute-pose
+    # information into the prior every frame (double counting that grows
+    # without bound).
     H_anchor: torch.Tensor
     g_anchor: torch.Tensor
     # [n_blocks, 6] full ascending per-block measurement eigenvalues
@@ -224,12 +235,8 @@ class WindowSolveResult(NamedTuple):
     support_neff: torch.Tensor | None = None
 
 
-def refuse_unported(cfg: MloamConfig, calibrate_ext: bool, analytic: bool):
+def refuse_unported(cfg: MloamConfig, analytic: bool):
     oc = cfg.odometry
-    if calibrate_ext:
-        raise NotImplementedError(
-            "optimize_window(calibrate_ext=True): online extrinsic "
-            "calibration is not ported yet (ROADMAP A9)")
     if not analytic:
         raise NotImplementedError(
             "optimize_window(analytic=False): only the closed-form "
@@ -252,43 +259,44 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
                     calibrate_ext: bool = False,
                     lidars: tuple[int, ...] | None = None,
                     analytic: bool = True):
-    """Backend solve over poses pivot..newest with the marginalization prior.
+    """Backend solve over poses pivot..newest (+ non-ref extrinsics in
+    calibration mode) with the marginalization prior.
 
     The normal equations are assembled from closed-form point Jacobians
     chained through the pose graph (per-chain 6x6 Gram blocks, then the chain
     rule by adjoints). ``lidars`` restricts which lidars contribute
-    correspondences.
+    correspondences. ``calibrate_ext``: ESTIMATE_EXTRINSIC==1, the extrinsic
+    blocks of lidars 1..L-1 join the tangent with a weak prior toward the
+    prior's linearization extrinsics, and the map is formed by lidar 0 only.
 
     As in the JAX package the solve passes ``remap_threshold=0.0`` (not
     ``None``) while the degeneracy gate is disarmed, so the projector and the
     block spectra are built on every solve; a direction freezes only if an
     f32 eigenvalue of the mean block comes out negative.
 
-    Returns (state with updated poses, WindowSolveResult).
+    Returns (state with updated poses and extrinsics, WindowSolveResult).
     """
-    refuse_unported(cfg, calibrate_ext, analytic)
+    refuse_unported(cfg, analytic)
     oc = cfg.odometry
     s = oc.window_size + 1
     O = oc.opt_window_size
     pivot = s - 1 - O          # opt poses are the tail: pivot + O + 1 == s
     L = cfg.rig.n_lidars
     n_opt = O + 1
-    dim = n_opt * 6
+    n_ext = (L - 1) if calibrate_ext else 0
+    dim = (n_opt + n_ext) * 6
     dev = state.poses.q.device
     if lidars is None:
         lidars = tuple(range(L))
 
-    c_map, c_mmask, s_map, s_mmask = build_local_map(state, cfg)
+    c_map, c_mmask, s_map, s_mmask = build_local_map(
+        state, cfg, map_lidars=(0,) if calibrate_ext else None)
     pivot_init = Pose(state.poses.q[pivot], state.poses.t[pivot])
 
     # state under optimization: (poses [S], ext [L])
     def opt_pose(x, i: int) -> Pose:
         poses, _ = x
         return Pose(poses.q[pivot + i], poses.t[pivot + i])
-
-    def ext_of(x, l: int) -> Pose:
-        _, ext = x
-        return Pose(ext.q[l], ext.t[l])
 
     q_ids = [(f, l) for f in range(1, n_opt) for l in lidars]
     nq = len(q_ids)
@@ -330,14 +338,26 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
                for i in range(n_opt)]
         q = torch.cat([poses.q[:pivot], torch.stack([p.q for p in new])])
         t = torch.cat([poses.t[:pivot], torch.stack([p.t for p in new])])
+        if n_ext:
+            # lidar 0 is the reference: its extrinsic stays fixed
+            ne = se3.boxplus(Pose(ext.q[1:], ext.t[1:]),
+                             dx[n_opt * 6:].reshape(n_ext, 6))
+            ext = Pose(torch.cat([ext.q[:1], ne.q]), torch.cat([ext.t[:1], ne.t]))
         return Pose(q, t), ext
 
     def prior_delta(x):
-        poses, _ = x
-        return se3.boxminus(
+        poses, ext = x
+        d = se3.boxminus(
             Pose(poses.q[pivot:], poses.t[pivot:]),
             Pose(state.prior_poses.q[pivot:], state.prior_poses.t[pivot:]),
         ).reshape(-1)
+        if n_ext:
+            de = se3.boxminus(
+                Pose(ext.q[1:], ext.t[1:]),
+                Pose(state.prior_ext.q[1:], state.prior_ext.t[1:]),
+            ).reshape(-1)
+            d = torch.cat([d, de])
+        return d
 
     def point_poses(T: Pose):
         """Per-point chain poses for the concatenated query sets."""
@@ -346,26 +366,50 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
             (T.q.repeat_interleave(n_s, 0), T.t.repeat_interleave(n_s, 0)),
         )
 
+    def ext_prior_rows(e: Pose, l: int) -> torch.Tensor:
+        return factors.prior_residual(
+            e, Pose(state.prior_ext.q[l], state.prior_ext.t[l]),
+            pos_w=1.0, rot_w=1.0)
+
     def small_residual(xx):
-        """Gauge anchor: the factor graph is purely relative (6-dim
+        """The few non-point rows: gauge anchor + calibration extrinsic
+        priors.
+
+        Gauge anchor: the factor graph is purely relative (6-dim
         nullspace); a weak absolute prior on the pivot at its pre-solve
-        estimate pins the gauge without biasing relative geometry. (The
-        marginalization prior enters the normal equations as a quadratic
-        form via gauss_newton's quad_prior — no rows here.)"""
-        return oc.gauge_weight * se3.boxminus(opt_pose(xx, 0), pivot_init)
+        estimate pins the gauge without biasing relative geometry. The
+        calibration rows are a weak prior keeping each non-reference
+        extrinsic near its running estimate. (The marginalization prior
+        enters the normal equations as a quadratic form via gauss_newton's
+        quad_prior — no rows here.)"""
+        _, ext = xx
+        rs = [oc.gauge_weight * se3.boxminus(opt_pose(xx, 0), pivot_init)]
+        rs += [ext_prior_rows(Pose(ext.q[l], ext.t[l]), l)
+               for l in range(1, n_ext + 1)]
+        return torch.cat(rs) if n_ext else rs[0]
 
     def small_linearization(xx):
-        """(rows, Jacobian [6, dim]) of the gauge anchor. Only the pivot block
-        is non-zero, so forward-mode AD runs over the pivot's 6-dim tangent
-        alone — the same Jacobian as differentiating through ``retract`` over
-        the whole window tangent, at a fraction of the ops."""
+        """(rows, Jacobian [6 + 6 n_ext, dim]) of ``small_residual``. Each
+        row block depends on one tangent block only (the gauge on the pivot,
+        extrinsic l's prior on extrinsic l), so forward-mode AD runs over
+        that block's 6-dim tangent alone — the same Jacobian as
+        differentiating through ``retract`` over the whole window tangent, at
+        a fraction of the ops."""
+        _, ext = xx
         piv = opt_pose(xx, 0)
         zero = torch.zeros((6,), dtype=torch.float32, device=dev)
         J6 = torch.func.jacfwd(
             lambda d: oc.gauge_weight * se3.boxminus(se3.boxplus(piv, d), pivot_init)
         )(zero)
-        Jsm = torch.cat([J6, torch.zeros((6, dim - 6), device=dev)], dim=1)
-        return small_residual(xx), Jsm
+        rows = [torch.cat([J6, torch.zeros((6, dim - 6), device=dev)], dim=1)]
+        for l in range(1, n_ext + 1):
+            e_l = Pose(ext.q[l], ext.t[l])
+            col = (n_opt + l - 1) * 6
+            row = torch.zeros((6, dim), device=dev)
+            row[:, col:col + 6] = torch.func.jacfwd(
+                lambda d: ext_prior_rows(se3.boxplus(e_l, d), l))(zero)
+            rows.append(row)
+        return small_residual(xx), torch.cat(rows) if n_ext else rows[0]
 
     x = (state.poses, state.ext)
     result = None
@@ -407,13 +451,17 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
 
             # chain rule through the pose graph, closed form: for
             # T = Wp⁻¹∘Wf∘E under right perturbations,
-            #   dδ_T/dδ_pivot = −Ad(T⁻¹), dδ_T/dδ_f = Ad(E⁻¹)
+            #   dδ_T/dδ_pivot = −Ad(T⁻¹), dδ_T/dδ_f = Ad(E⁻¹), dδ_T/dδ_E = I
             # (X∘Exp(v) = Exp(Ad_X v)∘X conjugation identities).
             A = torch.zeros((nq, 6, dim), device=dev)
             A[:, :, 0:6] = -se3.adjoint(se3.inverse(T))
             Ad_E = se3.adjoint(se3.inverse(Ex))
-            for qi, (f, _) in enumerate(q_ids):
+            eye6 = torch.eye(6, device=dev) if n_ext else None
+            for qi, (f, l) in enumerate(q_ids):
                 A[qi, :, f * 6:(f + 1) * 6] = Ad_E[qi]
+                if n_ext and l >= 1:
+                    col = (n_opt + l - 1) * 6
+                    A[qi, :, col:col + 6] = eye6
             H = torch.einsum("qai,qab,qbj->ij", A, G, A)
             g = torch.einsum("qai,qa->i", A, bq)
             rsm, Jsm = small_linearization(xx)
@@ -474,12 +522,9 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
 def marginalize_pivot(state: WindowState, solve: WindowSolveResult,
                       cfg: MloamConfig, calibrate_ext: bool = False) -> WindowState:
     """Schur-eliminate the pivot block of the final (H, g) into a prior over
-    the remaining opt poses; re-linearize at the current estimates. The new
-    frame pushed next step enters with a zero prior block."""
-    if calibrate_ext:
-        raise NotImplementedError(
-            "marginalize_pivot(calibrate_ext=True): online extrinsic "
-            "calibration is not ported yet (ROADMAP A9)")
+    the remaining opt poses (+ extrinsics in calibration mode); re-linearize
+    at the current estimates. The new frame pushed next step enters with a
+    zero prior block."""
     if cfg.odometry.eig_threshold > 0:
         raise NotImplementedError(
             "odometry.eig_threshold > 0: degeneracy-consistent "
@@ -488,18 +533,26 @@ def marginalize_pivot(state: WindowState, solve: WindowSolveResult,
     dim = prior_dim(cfg, calibrate_ext)
     dev = solve.H.device
     # marginalize only the factor blocks + old prior: the per-solve gauge
-    # anchor rows are re-added fresh every solve and must not be re-baked
-    # into the prior (see WindowSolveResult.H_anchor)
+    # anchor (and calibration extrinsic prior) rows are re-added fresh every
+    # solve and must not be re-baked into the prior (see
+    # WindowSolveResult.H_anchor)
     H_in = solve.H - solve.H_anchor
     g_in = solve.g - solve.g_anchor
     small = schur_marginalize_quad(H_in, g_in, n_drop=6)
-    # retained layout after the slide: [poses 0..O-1], new pose block O is
-    # zero. Old retained layout: [poses 1..O].
+    # retained layout after the slide: [poses 0..O-1 | ext...], new pose
+    # block O is zero. Old retained layout: [poses 1..O | ext...]: the
+    # extrinsic blocks shift past the zero new-pose block.
     k = O * 6
     Hp = torch.zeros((dim, dim), device=dev)
-    Hp[:k, :k] = small.H
     b = torch.zeros((dim,), device=dev)
-    b[:k] = small.b
+    if dim == k + 6:   # poses only
+        Hp[:k, :k] = small.H
+        b[:k] = small.b
+    else:
+        new_idx = torch.cat([torch.arange(k, device=dev),
+                             torch.arange(k + 6, dim, device=dev)])
+        Hp[new_idx[:, None], new_idx[None, :]] = small.H
+        b[new_idx] = small.b
     return state._replace(
         prior=QuadPrior(H=Hp, b=b, valid=small.valid),
         # clones: the window is rolled and written in place on the next

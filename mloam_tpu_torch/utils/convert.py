@@ -20,6 +20,7 @@ from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage
 from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.frontend.features import FeatCloud, FeatureFrame
 from mloam_tpu_torch.odometry.estimator import WindowState
+from mloam_tpu_torch.odometry.initializer import MotionBuffer
 from mloam_tpu_torch.sim.world import Trajectory, World
 from mloam_tpu_torch.solver.marginalization import QuadPrior
 
@@ -81,6 +82,8 @@ def range_image_from_numpy(img, device="cpu") -> RangeImage:
 
 
 def window_state_from_numpy(w, device="cpu") -> WindowState:
+    """Any mode's window: the prior's size (poses, or poses and extrinsic
+    blocks in calibration mode) is taken from the arrays."""
     (poses, corner, surf, ext, count, prior, prior_poses, prior_ext,
      deg_dir, deg_count) = tuple(w)
     H, b, valid = tuple(prior)
@@ -97,6 +100,13 @@ def window_state_from_numpy(w, device="cpu") -> WindowState:
         deg_dir=_t(deg_dir, device, torch.float32),
         deg_count=_t(deg_count, device, torch.int32),
     )
+
+
+def motion_buffer_from_numpy(buf, device="cpu") -> MotionBuffer:
+    ref_q, ref_t, tgt_q, tgt_t, mask, head = tuple(buf)
+    return MotionBuffer(_t(ref_q, device), _t(ref_t, device), _t(tgt_q, device),
+                        _t(tgt_t, device), _t(mask, device, torch.bool),
+                        _t(head, device, torch.int32))
 
 
 def world_from_numpy(w, device="cpu") -> World:

@@ -170,3 +170,75 @@ def test_logs_are_ad_safe_at_identity():
     Jt = torch.func.jacfwd(f_t)(torch.zeros(6))
     _close(Jt, jax.jacfwd(f_j)(jnp.zeros(6)))
     _close(Jt, np.eye(6, dtype=np.float32))
+
+
+# ------------------------------------------------------------ range images
+
+def test_hdl64_ring_table_matches_reference():
+    from mloam_tpu.core import rangeimage as JRI
+    from mloam_tpu_torch.core import rangeimage as TRI
+
+    table = TRI.hdl64_ring_table()
+    assert table == JRI.hdl64_ring_table()
+    assert len(table) == 64 and list(table) == sorted(table)
+    assert table[0] == pytest.approx(-24.33) and table[-1] == 2.0
+
+
+def _cloud(rng, n=6000):
+    """Points in every direction at 0.1-120 m (some out of range, some
+    outside the vertical field of view), a masked tenth, and exact duplicates
+    with other intensities (range ties inside one cell)."""
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] *= 0.25
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    xyz = d * rng.uniform(0.1, 120.0, size=(n, 1)).astype(np.float32)
+    dup = rng.integers(0, n, size=n // 10)
+    xyz = np.concatenate([xyz, xyz[dup]]).astype(np.float32)
+    mask = rng.random(xyz.shape[0]) > 0.1
+    inten = rng.random(xyz.shape[0]).astype(np.float32)
+    return xyz, mask, inten
+
+
+@pytest.mark.parametrize("sensor", ["sim16", "hdl32", "hdl64_table", "small_8x360"])
+def test_project_matches_reference(sensor):
+    """Scatter-min on range, then on the index among equal ranges: the same
+    winner in every cell on both sides (so the gathered payloads are equal
+    bit for bit), exact ties to the lowest index."""
+    from mloam_tpu.core import rangeimage as JRI
+    from mloam_tpu.models import platforms as jplat
+    from mloam_tpu_torch.core import rangeimage as TRI
+    from mloam_tpu_torch.models import platforms as tplat
+
+    jm, tm = {
+        "sim16": (jplat.SIM16, tplat.SIM16),
+        "hdl32": (jplat.HDL32, tplat.HDL32),
+        "hdl64_table": (jplat.kitti().rig.models[0], tplat.kitti().rig.models[0]),
+        "small_8x360": (JRI.LidarModel(n_rings=8, n_cols=360),
+                        TRI.LidarModel(n_rings=8, n_cols=360)),
+    }[sensor]
+    assert tuple(jm) == tuple(tm)
+    xyz, mask, inten = _cloud(np.random.default_rng(7))
+    j = JRI.project(jnp.asarray(xyz), jnp.asarray(mask), jm, jnp.asarray(inten))
+    t = TRI.project(torch.from_numpy(xyz), torch.from_numpy(mask), tm,
+                    torch.from_numpy(inten))
+    assert t.valid.shape == (tm.n_rings, tm.n_cols)
+    np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
+    assert 200 < int(t.valid.sum()) < mask.sum()
+    for a, b in ((t.rng, j.rng), (t.xyz, j.xyz), (t.intensity, j.intensity)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_allclose(t.time.numpy(), np.asarray(j.time), atol=1e-7)
+
+
+def test_project_ties_go_to_the_lowest_index():
+    from mloam_tpu_torch.core import rangeimage as TRI
+
+    m = TRI.LidarModel(n_rings=4, n_cols=36)
+    p = np.array([[5.0, 0.1, 0.0]], np.float32)
+    xyz = torch.from_numpy(np.repeat(p, 4, 0))
+    xyz[0] *= 1.5                                # farther: loses to all
+    inten = torch.tensor([0.9, 0.2, 0.3, 0.4])
+    mask = torch.tensor([True, False, True, True])  # the lowest tie is masked
+    img = TRI.project(xyz, mask, m, inten)
+    assert int(img.valid.sum()) == 1
+    assert float(img.intensity[img.valid]) == pytest.approx(0.3)
+    assert float(img.rng[img.valid]) == pytest.approx(float(np.linalg.norm(p)))

@@ -91,6 +91,8 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for():
         run_synthetic.run(n_frames=2, verbose=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_synthetic.render(cfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_synthetic.render_rig(platforms.synthetic(n_lidars=2), 1)
     g = torch.Generator().manual_seed(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         W.make_world(g)
@@ -224,9 +226,6 @@ def _cfg(**odo):
 
 
 NARROWED = {
-    "n_lidars_2": lambda: P.OdometryPipeline(platforms.synthetic(n_lidars=2), device="cpu"),
-    "ext_mode_2": lambda: P.OdometryPipeline(
-        platforms.synthetic(n_lidars=2, extrinsic_mode=2), device="cpu"),
     "gf_ratio": lambda: P.OdometryPipeline(_cfg(gf_ratio=0.6), device="cpu"),
     "eig_threshold": lambda: P.OdometryPipeline(_cfg(eig_threshold=175.0), device="cpu"),
     "window_loss_gm": lambda: P.OdometryPipeline(_cfg(loss_mode="gm"), device="cpu"),
@@ -235,18 +234,13 @@ NARROWED = {
     "skip_steady": lambda: P.OdometryPipeline(dataclasses.replace(
         platforms.synthetic(), tracker=dataclasses.replace(
             platforms.synthetic().tracker, skip_steady=True)), device="cpu"),
-    "process_chunk": lambda: P.OdometryPipeline(
-        platforms.synthetic(), device="cpu").process_chunk(None),
     "full_pipeline": lambda: P.FullPipeline(platforms.synthetic()),
     "slam_pipeline": lambda: P.SlamPipeline(platforms.synthetic()),
-    "calibrate_ext": lambda: E.optimize_window(
-        E.init_window(platforms.synthetic(), 8, 8, device="cpu"),
-        platforms.synthetic(), calibrate_ext=True),
     "analytic_false": lambda: E.optimize_window(
         E.init_window(platforms.synthetic(), 8, 8, device="cpu"),
         platforms.synthetic(), analytic=False),
-    "marginalize_calib": lambda: E.marginalize_pivot(None, None, platforms.synthetic(),
-                                                     calibrate_ext=True),
+    "marginalize_armed_gate": lambda: E.marginalize_pivot(
+        None, None, _cfg(eig_threshold=175.0)),
 }
 
 
@@ -257,11 +251,21 @@ def test_narrowed_feature_raises_not_implemented(name):
 
 
 def test_presets_not_ported_are_absent_not_silently_different():
-    for name in ("realtime_tuned", "indoor_degenerate", "kitti", "oxford",
-                 "handheld", "vehicle_hercules", "simu_jackal"):
+    for name in ("realtime_tuned", "indoor_degenerate"):
         assert not hasattr(platforms, name)
     cfg = platforms.synthetic()
     assert cfg.odometry.cap_frame_corner == 1024 and cfg.odometry.cap_frame_surf == 2048
     assert cfg.features.cap_less_flat == 4096 and cfg.rig.models[0].n_cols == 1800
     two = platforms.synthetic(n_lidars=2)
     assert two.odometry.cap_frame_corner == 384 and two.odometry.localmap_precap_surf == 3840
+
+
+@pytest.mark.parametrize("name", ["simu_jackal", "handheld", "vehicle_hercules",
+                                  "oxford", "kitti"])
+def test_ported_presets_equal_the_reference_presets(name):
+    """Field by field, sensor models (the HDL-64 ring table) included."""
+    from mloam_tpu.models import platforms as jplatforms
+
+    t, j = getattr(platforms, name)(), getattr(jplatforms, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert type(t.rig.models[0]).__module__.startswith("mloam_tpu_torch")

@@ -167,3 +167,25 @@ def test_run_synthetic_small_on_cpu():
     res = run_synthetic.run(n_frames=6, seed=3, verbose=False, device="cpu", cfg=tcfg)
     assert res["n_frames"] == 6 and res["device"] == "cpu"
     assert np.isfinite(res["est_t"]).all() and res["ate_m"] < 0.05
+
+
+def test_process_chunk_of_one_lidar_equals_streaming(sequences):
+    """Chunked replay of one lidar's wire-format sweeps (a PackedFrame with a
+    leading K axis) leaves the state exactly where K ``process`` calls do."""
+    _, tcfg, _, _, timgs, _ = sequences
+    packed = [TRI.pack_frame(TRI.RangeImage(*(f[i] for f in timgs)))
+              for i in range(N_FRAMES)]
+    ws = tcfg.odometry.window_size
+    a = OdometryPipeline(tcfg, device="cpu")
+    outs = [a.process([p]) for p in packed]
+    b = OdometryPipeline(tcfg, device="cpu")
+    for p in packed[:ws]:
+        b.process([p])
+    tail = TRI.PackedFrame(*(np.stack(f) for f in zip(*packed[ws:])))
+    q, t, pq, pt, cost, nc, ns = b.process_chunk(tail)
+    assert t.shape == (N_FRAMES - ws, 3)
+    assert torch.equal(t, torch.stack([o.pose.t for o in outs[ws:]]))
+    assert torch.equal(q, torch.stack([o.pose.q for o in outs[ws:]]))
+    assert torch.equal(cost, torch.stack([o.cost for o in outs[ws:]]))
+    assert torch.equal(b.window.prior.H, a.window.prior.H)
+    assert b.frame_idx == a.frame_idx == N_FRAMES
