@@ -26,12 +26,21 @@ sweeps must make:
   complete with a final extrinsic error under 5 mrad and 2 cm;
 - the presets: 8 sweeps each of Oxford (2x HDL-32, 32x2160), KITTI (HDL-64,
   64x1800) and the Hercules vehicle (4x VLP-16, ESTIMATE_EXTRINSIC 1 as
-  shipped), finite poses.
+  shipped), finite poses;
+- the map path: ``FullPipeline`` (odometry + uncertainty-aware keyframe
+  mapping, the default ``MappingConfig``) on the single VLP-16, 40 sweeps,
+  map-frame and odometry ATE < 5 cm, at least 2 keyframes, positive
+  semi-definite keyframe covariances, a finite non-empty outlier channel,
+  one staleness read per mapped sweep;
+- the map rig path: the dual rig with known extrinsics and a prior
+  extrinsic covariance (the lidars' point covariances differ), 20 sweeps,
+  map-frame ATE < 5 cm.
 
-The k-NN calls of the dual rig's window solve and of the calibration path's
-first warm sweeps in modes 2 and 1, and the label propagation calls of the
-presets, are captured from those paths and held against the plain versions
-too.
+The k-NN calls of the dual rig's window solve, of the calibration path's
+first warm sweeps in modes 2 and 1 and of the mapper's first match against a
+rebuilt surround map (both mapping paths), and the label propagation calls
+of the presets, are captured from those paths and held against the plain
+versions too.
 
 One JSON object per line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,12 +50,18 @@ Needs one CUDA device and nvcc; no network.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import json
+import os
+import pathlib
 import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import torch
 
@@ -62,9 +77,11 @@ from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage  # noqa: E402
 from mloam_tpu_torch.core.se3 import Pose  # noqa: E402
 from mloam_tpu_torch.frontend import segmentation as S  # noqa: E402
 from mloam_tpu_torch.models import platforms, run_synthetic  # noqa: E402
+from mloam_tpu_torch.mapping import mapper as MP  # noqa: E402
 from mloam_tpu_torch.models.pipeline import OdometryPipeline  # noqa: E402
 from mloam_tpu_torch.ops import _build, hopper_knn, hopper_labels  # noqa: E402
 from mloam_tpu_torch.ops import knn as knn_ops  # noqa: E402
+from mloam_tpu_torch.utils import timing  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(0).multi_processor_count
@@ -75,6 +92,11 @@ CALIB_FRAMES = 90
 CALIB_ROT_GATE_RAD = 5e-3
 CALIB_POS_GATE_M = 0.02
 PRESET_FRAMES = 8
+MAP_FRAMES = 40
+MAP_RIG_FRAMES = 20
+# the dual rig's prior extrinsic covariance on the map rig path ([rho; phi]
+# diagonal: 1 cm and 3 mrad standard deviations)
+MAP_RIG_EXT_COV = (1e-4, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
 # what the JAX package's `experiments calib` program recorded for the same
 # lifecycle (results/calib/summary.json): its world is drawn by another
 # generator, so the sweeps of the transitions are set beside, not compared
@@ -848,6 +870,232 @@ def phase_presets():
     return counts, captured, by_shape
 
 
+# --------------------------------------------------------------------------
+# the mapping paths
+# --------------------------------------------------------------------------
+
+def _median(xs):
+    return float(np.median(xs)) if len(xs) else None
+
+
+def phase_map_path(name, cfg, n_frames, extrinsics=None):
+    """``FullPipeline`` through ``run_synthetic.run(mapping=True)``. After
+    every sweep the launch counters and the staleness reads are checked: the
+    odometry's K1 and K2 launches, plus 2 k-NN launches per outer iteration
+    on every mapped sweep once the map holds a keyframe (the first mapped
+    sweep passes through), and one staleness read per mapped sweep. The
+    mapper's two k-NN calls of the first outer iteration of the first mapped
+    sweep that matched against a rebuilt surround map, and of the last (the
+    fullest map), are kept, to be held against the plain version after the
+    run."""
+    L = cfg.rig.n_lidars
+    ws = cfg.odometry.window_size
+    mc = cfg.mapping
+    map_sizes = (mc.cap_map_corner, mc.cap_map_surf)
+    seen = {"labels": 0, "knn": 0, "reads": 0, "mapped": 0, "rebuilds": 0}
+    captured, last, pending, surround = [], [], [], []
+    real_knn = hopper_knn.knn
+
+    def rec_knn(q, r, m, k):
+        if r.shape[0] in map_sizes and len(pending) < 2:
+            pending.append((q.clone(), r.clone(), m.clone(), k))
+        return real_knn(q, r, m, k)
+
+    def on_sweep(i, out, pipe):
+        d_l = hopper_labels.launches - seen["labels"]
+        d_k = hopper_knn.launches - seen["knn"]
+        d_r = MP.stale_reads - seen["reads"]
+        want_k = knn_per_sweep(i, 0, L, ws)
+        if out.mapped:
+            want_k += 2 * mc.outer_iters if seen["mapped"] > 0 else 0
+            seen["mapped"] += 1
+        if d_l != L or d_k != want_k or d_r != int(out.mapped):
+            fail(f"{name}, sweep {i}: labels {d_l} (expected {L}), knn {d_k} "
+                 f"(expected {want_k}), staleness reads {d_r} "
+                 f"(expected {int(out.mapped)})")
+        rebuilt = len(timing._registry.get("map_step_rebuild", [])) > seen["rebuilds"]
+        seen["rebuilds"] = len(timing._registry.get("map_step_rebuild", []))
+        if out.mapped:
+            c = pipe.mapper_state.cache
+            surround.append({"sweep": i, "rebuilt": rebuilt,
+                             "corner": int(c.c_mask.sum()), "surf": int(c.s_mask.sum())})
+        if len(pending) == 2 and out.mapped and rebuilt and seen["mapped"] > 1:
+            if not captured:
+                captured.extend(pending)
+            last[:] = pending
+        pending.clear()
+        seen.update(labels=hopper_labels.launches, knn=hopper_knn.launches,
+                    reads=MP.stale_reads, pipe=pipe)
+
+    zero_counters()
+    reads0 = MP.stale_reads
+    seen["reads"] = reads0
+    hopper_knn.knn = rec_knn
+    try:
+        res = run_synthetic.run(n_frames=n_frames, seed=0, verbose=False, device=DEV,
+                                cfg=cfg, extrinsics=extrinsics, mapping=True,
+                                on_sweep=on_sweep)
+    finally:
+        hopper_knn.knn = real_knn
+    n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+    n_reads = MP.stale_reads - reads0
+    mapped = res["mapped"]
+    n_mapped = sum(mapped)
+    check_counters(name, n_labels, n_knn, L * n_frames,
+                   expected_knn(res["modes"], L, ws, 0)
+                   + 2 * mc.outer_iters * max(n_mapped - 1, 0))
+    if n_reads != n_mapped:
+        fail(f"{name}: {n_reads} staleness reads for {n_mapped} mapped sweeps")
+    path_m = check_trajectory(name, res, n_frames)
+    if not np.isfinite(res["map_est_t"]).all():
+        fail(f"{name}: map-frame trajectory holds non-finite poses")
+    if not res["map_ate_m"] < ATE_GATE_M:
+        fail(f"{name}: map ATE {res['map_ate_m']:.4f} m is not under the {ATE_GATE_M} m gate")
+    db = seen["pipe"].mapper_state.db
+    valid = db.valid.cpu().numpy()
+    n_kf = int(valid.sum())
+    if n_kf < 2:
+        fail(f"{name}: only {n_kf} keyframe(s) inserted")
+    eig_min = float(np.linalg.eigvalsh(db.cov.cpu().numpy()[valid]).min())
+    if eig_min <= -1e-6:
+        fail(f"{name}: a keyframe covariance is not PSD (eigenvalue {eig_min})")
+    out_mask = db.outlier.mask.cpu().numpy()[valid]
+    out_xyz = db.outlier.xyz.cpu().numpy()[valid][out_mask]
+    if not out_mask.any() or not np.isfinite(out_xyz).all():
+        fail(f"{name}: the keyframes' outlier channel is empty or not finite")
+    if len(captured) != 2 or len(last) != 2:
+        fail(f"{name}: no mapped sweep matched against a rebuilt surround map")
+    sync_points = map_step_sync_points(seen["pipe"], cfg)
+    probe_ms = map_step_probe_ms(seen["pipe"], cfg)
+    sweep_ms = np.asarray(res["sweep_ms"])
+    mapped_a = np.asarray(mapped)
+    steady = np.arange(n_frames) > ws
+    steps = {k: np.asarray(timing._registry.get(f"map_step_{k}", [])) * 1e3
+             for k in ("rebuild", "reuse")}
+    emit({name: {
+        "frames": n_frames, "lidars": L, "map_ate_m": res["map_ate_m"],
+        "odom_ate_m": res["ate_m"], "path_m": path_m,
+        "mapped_sweeps": n_mapped, "keyframes": n_kf,
+        "keyframe_cov_eig_min": eig_min,
+        "outlier_points_in_keyframes": int(out_mask.sum()),
+        "mapped_sweep_ms_median": _median(sweep_ms[mapped_a & steady]),
+        "passthrough_sweep_ms_median": _median(sweep_ms[~mapped_a & steady]),
+        "map_step_ms_median": {k: _median(v) for k, v in steps.items()},
+        "map_steps": {k: len(v) for k, v in steps.items()},
+        "map_step_ms_from_final_state": probe_ms,
+        "stale_reads": n_reads,
+        "map_step_sync_points": sync_points,
+        "surround_valid_points": surround,
+        "ext_cov_prior_diag": cfg.mapping.ext_cov_prior_diag,
+        "launches": {"propagate_labels": n_labels, "knn": n_knn},
+        "width": width(cfg),
+    }})
+    return {"propagate_labels": n_labels, "knn": n_knn}, captured + last
+
+
+def _copy_state(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_copy_state(v) for v in x))
+    return x
+
+
+def _probe_state(pipe, kind):
+    """A copy of the pipeline's mapper state whose next step (at the
+    pipeline's current pose) reuses or rebuilds the surround map."""
+    st = _copy_state(pipe.mapper_state)
+    if kind == "rebuild":
+        return st._replace(cache=st.cache._replace(valid=torch.zeros_like(st.cache.valid)))
+    pred = se3.compose(st.pose_map_odom, pipe.odom.world_pose)
+    return st._replace(cache=st.cache._replace(center=pred.t.clone(),
+                                               head=st.db.head.clone()))
+
+
+def map_step_probe_ms(pipe, cfg, reps=3):
+    """Median ms of the mapper step from the final state, reusing and
+    rebuilding the surround map (each on a fresh copy; device synchronised
+    around each step): a path whose every mapped sweep inserts a keyframe
+    never reuses its map."""
+    corner, surf = pipe.last_merged
+    out = {}
+    for kind in ("reuse", "rebuild"):
+        ts = []
+        for _ in range(reps):
+            st = _probe_state(pipe, kind)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            MP.mapper_step(st, pipe.odom.world_pose, corner, surf, cfg)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        out[kind] = float(np.median(ts))
+    return out
+
+
+def map_step_sync_points(pipe, cfg):
+    """One more mapper step, on a copy of the final state with the last
+    mapped sweep's clouds, under CUDA's sync debug mode, once reusing the
+    cached surround map and once rebuilding it: the source lines at which
+    the host waited for the device, with their counts. The step may wait only
+    at its one staleness read and at ``eigh`` (which synchronises to check
+    its solver status); any other line of the package fails the run. A wait
+    that surfaces outside the package's frames (a warning raised in a
+    C++ call that let go of the interpreter is reported at the next Python
+    line that runs) is listed as such, not failed."""
+    corner, surf = pipe.last_merged
+    pose = pipe.odom.world_pose
+    out = {}
+    for kind in ("reuse", "rebuild"):
+        st = _probe_state(pipe, kind)
+        torch.cuda.synchronize()
+        stacks = []
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message).lower():
+                stacks.append(traceback.extract_stack()[:-1])
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, mout = MP.mapper_step(st, pose, corner, surf, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if mout.stale != (kind == "rebuild"):
+            fail(f"sync probe: the {kind} step took the other branch")
+        # each wait is put on the innermost frame of the package's own code
+        lines = collections.Counter()
+        for stack in stacks:
+            own = [f for f in stack if f"{os.sep}mloam_tpu_torch{os.sep}" in f.filename]
+            f = own[-1] if own else stack[-1]
+            where = "" if own else "outside the package: "
+            lines[f"{where}{pathlib.Path(f.filename).name}:{f.lineno}: {f.line}"] += 1
+        bad = [k for k in lines if not k.startswith("outside")
+               and not ("eigh" in k or "eigvalsh" in k or "stale = bool(" in k)]
+        if bad:
+            fail(f"the mapper step waits for the device outside its staleness "
+                 f"read and eigh: {bad}")
+        out[kind] = dict(lines)
+    return out
+
+
+def map_knn_checks(prefix, captured):
+    """Hold the mapper's captured k-NN calls (edge, then plane; the first
+    rebuilt map's, then the last's) against the plain version and time
+    them."""
+    checks, shapes = [], []
+    kinds = ("map_edge", "map_plane", "map_edge_last", "map_plane_last")
+    for kind, (q, r, m, k) in zip(kinds, captured):
+        name = f"{prefix}{kind}"
+        chk = check_knn(name, q, r, m, k)
+        if not chk["all_slots_equal"]:
+            fail(f"knn {name}: indices differ from the plain version at some slot")
+        checks.append(chk)
+        shapes.append(knn_timing(name, q, r, m, k, chk))
+    return checks, shapes
+
+
 def main():
     t0 = time.perf_counter()
     smi = phase_env()
@@ -864,6 +1112,19 @@ def main():
         platforms.synthetic(n_lidars=2, extrinsic_mode=2))
     preset_counts, captured, by_shape = phase_presets()
     by_path.update(preset_counts)
+    by_path["map_path"], map_captured = phase_map_path("map_path", cfg, MAP_FRAMES)
+    map_rig_cfg = dataclasses.replace(rig_cfg, mapping=dataclasses.replace(
+        rig_cfg.mapping, ext_cov_prior_diag=MAP_RIG_EXT_COV))
+    by_path["map_rig_path"], map_rig_captured = phase_map_path(
+        "map_rig_path", map_rig_cfg, MAP_RIG_FRAMES, extrinsics=RIG_X)
+
+    # K2 at the mapper's shapes, on the inputs the mapping paths gave it
+    map_checks, map_shapes = map_knn_checks("", map_captured)
+    rig_checks, rig_map_shapes = map_knn_checks("rig_", map_rig_captured)
+    emit({"kernel_checks": {"knn_map": map_checks + rig_checks}})
+    k2["main_path_shapes"] += map_shapes + rig_map_shapes
+    k2["max_abs_err"] = max([k2["max_abs_err"]]
+                            + [c["max_abs_err"] for c in map_checks + rig_checks])
 
     # K2 at the calibration path's shapes, on the inputs that path gave it
     calib_checks, calib_shapes = calib_knn_checks(calib_captured, rig_cfg.rig.n_lidars)

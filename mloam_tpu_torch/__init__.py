@@ -6,15 +6,19 @@ Same layer map and the same module and function names as the JAX package
 inside: plain functions on tensors, NamedTuple state containers, an explicit
 ``device`` on every constructor and entry point, eager execution.
 
-  core/      geometry (SO(3)/SE(3)), range-image schema
-  ops/       batched primitives: k-NN, voxel reductions, masked top-k, and the
-             two hand-written CUDA kernels (label propagation, fused k-NN)
+  core/      geometry (SO(3)/SE(3)), covariance algebra, range-image and
+             cloud schemas
+  ops/       batched primitives: k-NN, voxel reductions (plain and
+             uncertainty-weighted), masked top-k, and the two hand-written
+             CUDA kernels (label propagation, fused k-NN)
   csrc/      CUDA C++ sources of those kernels (built by ops/_build.py)
   frontend/  segmentation, curvature feature extraction
   solver/    factor library, robust losses, Gauss-Newton, marginalization,
-             degeneracy projector
-  odometry/  scan-to-scan tracker, sliding-window estimator
-  models/    single-LiDAR odometry pipeline and its synthetic run program
+             degeneracy projector, good-feature selection
+  odometry/  scan-to-scan tracker, sliding-window estimator, calibration
+  mapping/   keyframe ring and uncertainty-aware scan-to-map refinement
+  models/    odometry and odometry + mapping pipelines, platform presets and
+             the synthetic run program
   sim/       synthetic world, trajectory and ray-cast renderer
   utils/     timing registry, trajectory evaluation, numpy state conversion
 

@@ -16,7 +16,12 @@ _EPS = 1e-12
 
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    # filled on the device: a tensor built from a host list (or an element
+    # set from a Python number) is a copy from pageable memory, which waits
+    # for the device's stream
+    q = torch.zeros((4,), dtype=dtype, device=device)
+    q[:1].fill_(1.0)
+    return q
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

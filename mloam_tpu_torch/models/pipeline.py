@@ -1,10 +1,11 @@
-"""End-to-end odometry pipeline assembly: single- or multi-LiDAR, sweep to
-pose, with the online extrinsic calibration lifecycle.
+"""End-to-end pipeline assembly: single- or multi-LiDAR odometry, sweep to
+pose, with the online extrinsic calibration lifecycle, and the odometry plus
+keyframe mapping (``FullPipeline``).
 
-Counterpart of ``mloam_tpu/models/pipeline.py:OdometryPipeline``. PyTorch
-runs eagerly, so what the JAX package fuses into one jitted program per sweep
-is plain composition here; the method names are kept so a reader finds the
-counterpart:
+Counterpart of ``mloam_tpu/models/pipeline.py:OdometryPipeline`` and
+``FullPipeline``. PyTorch runs eagerly, so what the JAX package fuses into
+one jitted program per sweep is plain composition here; the method names are
+kept so a reader finds the counterpart:
 
   first sweep     frontends + ``_push_first``
   warm-up         frontends + ``_track`` + ``_push_only``
@@ -41,8 +42,13 @@ Per sweep the hand-written kernels run once per lidar for label propagation
 (``ops/hopper_labels``) and for k-NN (``ops/hopper_knn``) twice per tracker
 (one tracker, or one per lidar in mode 2) and twice in the window solve.
 
+A mapped sweep of ``FullPipeline`` adds the mapper's step
+(``mapping/mapper.mapper_step``, under the timer ``map_step``): two outer
+iterations of two k-NN calls each against the surround map, once the map
+holds a keyframe.
+
 Not ported yet, each refused with ``NotImplementedError``: the tracker-less
-steady path (``skip_steady``) and the mapping / loop-closure pipelines. The
+steady path (``skip_steady``) and the loop-closure pipeline. The
 JAX package's opt-in vmapped frontend for uniform rigs (an environment
 switch it measured slower than the unrolled default) has no counterpart.
 """
@@ -64,6 +70,7 @@ from mloam_tpu_torch.frontend import features as F
 from mloam_tpu_torch.frontend import segmentation as S
 from mloam_tpu_torch.frontend.features import (FeatCloud, FeatureFrame,
                                                downsample_featcloud)
+from mloam_tpu_torch.mapping import mapper as MP
 from mloam_tpu_torch.odometry import estimator as E
 from mloam_tpu_torch.odometry import initializer as I
 from mloam_tpu_torch.odometry import tracker as TR
@@ -481,10 +488,102 @@ class OdometryPipeline:
         return out
 
 
+class FullOutput(NamedTuple):
+    odom: OdometryOutput
+    map_pose: Pose            # map <- base (best available estimate)
+    map_cov: torch.Tensor | None
+    mapped: bool              # whether the mapper ran this sweep
+    # smallest eigenvalue of the scan-to-map Hessian on mapped sweeps (the
+    # mapper's degeneracy probe); None on pass-through sweeps
+    map_eig_min: torch.Tensor | None = None
+    # device bool: the mapper inserted a keyframe this sweep (None on
+    # pass-through sweeps); not read here
+    inserted_kf: torch.Tensor | None = None
+    # directions the mapper's remap froze this sweep (None on pass-through)
+    map_frozen: torch.Tensor | None = None
+
+
 class FullPipeline:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FullPipeline: the keyframe mapper is not ported yet (ROADMAP A11)")
+    """Odometry + uncertainty-aware keyframe mapping.
+
+    Counterpart of ``mloam_tpu/models/pipeline.py:FullPipeline`` (the
+    reference's odometry node + lidar_mapper_keyframe node): the mapper
+    consumes every ``mapping.skip_frames``-th sweep once the window is warm
+    and maintains the map<-odom drift correction; between mapping updates
+    the corrected odometry pose is reported. Whether a sweep is mapped is
+    decided by host integers. Runs on ``device``: the GPU unless the caller
+    passes another; raises when that device is absent.
+    """
+
+    def __init__(self, cfg: MloamConfig, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.odom = OdometryPipeline(cfg, device=self.device)
+        self.mapper_state = MP.init_state(cfg, device=self.device)
+        # whether the calibrated extrinsic covariance has been installed into
+        # the mapper (the reference mapper reads it off /extrinsics once the
+        # calibration status drops to 0)
+        self._ext_cov_installed = False
+        # last mapped sweep's merged (corner, surf) base-frame clouds, for the
+        # loop-closure pipeline's keyframe handling
+        self.last_merged = None
+
+    def _install_ext_cov(self):
+        """Plumb the frozen calibration covariance (``OdometryPipeline.ext_cov``,
+        set at the ESTIMATE_EXTRINSIC 1->0 transition) into the mapper: from
+        then on mapping runs on the calibrated extrinsic uncertainty instead
+        of the config prior."""
+        L = self.cfg.rig.n_lidars
+        ec = np.zeros((L, 6, 6), np.float32)
+        ec[1:] = np.asarray(self.odom.ext_cov)
+        self.mapper_state = self.mapper_state._replace(
+            ext_cov=torch.from_numpy(ec).to(self.device))
+        self._ext_cov_installed = True
+
+    @staticmethod
+    def _merge_outlier_impl(ext: Pose, outliers) -> FeatCloud:
+        """Project per-lidar outlier clouds through the extrinsics into the
+        base frame and concatenate."""
+        parts = [fc._replace(xyz=se3.transform_points(Pose(ext.q[l], ext.t[l]), fc.xyz))
+                 for l, fc in enumerate(outliers)]
+        return FeatCloud(*(torch.cat(x) for x in zip(*parts)))
+
+    def _merge_impl(self, ext: Pose, corner_stack: FeatCloud, surf_stack: FeatCloud):
+        """The newest window slot of each lidar, projected through the
+        extrinsics into the base frame and concatenated in lidar order."""
+        L = self.cfg.rig.n_lidars
+
+        def proj(stack):
+            return self._merge_outlier_impl(
+                ext, [_index(_index(stack, -1), l) for l in range(L)])
+
+        return proj(corner_stack), proj(surf_stack)
+
+    @torch.no_grad()
+    def process(self, imgs: list) -> FullOutput:
+        cfg = self.cfg
+        out = self.odom.process(imgs)
+        if not self._ext_cov_installed and self.odom.ext_cov is not None:
+            self._install_ext_cov()
+        idx = self.odom.frame_idx - 1  # frame just processed
+        run_map = idx % cfg.mapping.skip_frames == 0 and idx >= cfg.odometry.window_size
+        if run_map:
+            win = self.odom.window
+            corner_b, surf_b = self._merge_impl(win.ext, win.corner, win.surf)
+            outlier_b = self._merge_outlier_impl(win.ext, self.odom.last_outlier)
+            with timing.timer("map_step"):
+                self.mapper_state, mout = MP.mapper_step(
+                    self.mapper_state, out.pose, corner_b, surf_b, cfg,
+                    outlier=outlier_b)
+            timing.record("map_step_rebuild" if mout.stale else "map_step_reuse",
+                          timing.last("map_step"))
+            self.last_merged = (corner_b, surf_b)
+            return FullOutput(
+                odom=out, map_pose=mout.pose, map_cov=mout.cov, mapped=True,
+                map_eig_min=mout.eig_min, inserted_kf=mout.inserted_kf,
+                map_frozen=mout.frozen)
+        map_pose = se3.compose(self.mapper_state.pose_map_odom, out.pose)
+        return FullOutput(odom=out, map_pose=map_pose, map_cov=None, mapped=False)
 
 
 class SlamPipeline:

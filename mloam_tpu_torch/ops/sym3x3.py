@@ -74,7 +74,8 @@ def _eigvec_for(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     v = torch.gather(cand, -2, idx)[..., 0, :]
     norm = torch.linalg.norm(v, dim=-1, keepdim=True)
     # fully degenerate (isotropic) fallback: any unit vector
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype, device=A.device)
+    fallback = torch.zeros((3,), dtype=A.dtype, device=A.device)
+    fallback[:1].fill_(1.0)   # filled on the device, not copied from the host
     return torch.where(norm > 1e-10, v / torch.clamp(norm, min=_EPS), fallback)
 
 

@@ -1,8 +1,9 @@
 """Voxel-grid ops as sort + segment reductions (exact, statically shaped).
 
 Replacements for PCL voxel filters: plain centroid downsampling, used in
-feature extraction and local-map assembly. (The uncertainty-weighted filter
-of the mapper is not ported yet.) Counterpart of ``mloam_tpu/ops/voxel.py``.
+feature extraction and local-map assembly, and the uncertainty-weighted
+filter of the mapper's surround map. Counterpart of
+``mloam_tpu/ops/voxel.py``.
 
 Design: no kd-trees, no dynamic shapes. Points are keyed by their integer
 voxel coordinate, sorted (stable, so the order inside a voxel is the input
@@ -168,3 +169,51 @@ def voxel_downsample_two_class(
     xyz_b_ds = out[n_a + ar_b]  # n_a <= na, so always in range
     mask_b_ds = ar_b < n_b
     return xyz_a_ds, mask_a_ds, xyz_b_ds, mask_b_ds
+
+
+def voxel_downsample_with_cov(
+    xyz: torch.Tensor,
+    cov: torch.Tensor,
+    mask: torch.Tensor,
+    leaf: float,
+    trace_threshold: float,
+    payload: torch.Tensor | None = None,
+    packed: bool = False,
+):
+    """Uncertainty-weighted voxel filter (VoxelGridCovarianceMLOAM semantics).
+
+    Points with tr(Σ) >= trace_threshold are dropped; within a voxel,
+    w_i = trace_threshold - tr(Σ_i), μ = Σ w_i x_i / Σ w_i,
+    Σ_out = Σ w_i² Σ_i / (Σ w_i)², payload taken from the heaviest point
+    (the largest payload among equally heavy ones). cov: [N, 3, 3].
+    Returns (xyz, cov, mask, payload), compacted to the input capacity.
+    """
+    tr = torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1)
+    ok = mask & (tr < trace_threshold)
+    w = torch.clamp(trace_threshold - tr, min=0.0)
+    red = voxel_reduce(voxel_coords(xyz, leaf), ok, packed=packed)
+    n = xyz.shape[0]
+
+    ws = torch.where(red.sorted_valid, w[red.order], 0.0)
+    wsum = torch.zeros((n,), dtype=xyz.dtype, device=xyz.device) \
+        .index_add_(0, red.seg_id, ws)
+    wsum_safe = torch.clamp(wsum, min=1e-12)
+    out_xyz = torch.zeros_like(xyz).index_add_(
+        0, red.seg_id, ws[:, None] * xyz[red.order]) / wsum_safe[:, None]
+    out_cov = torch.zeros_like(cov).index_add_(
+        0, red.seg_id, (ws * ws)[:, None, None] * cov[red.order]) \
+        / (wsum_safe * wsum_safe)[:, None, None]
+    out_payload = None
+    if payload is not None:
+        # the heaviest member's payload: a segment max of the weights, then a
+        # segment max of the payloads of the members that reach it
+        wk = torch.where(red.sorted_valid, ws, -1.0)
+        best = torch.full((n,), -torch.inf, dtype=xyz.dtype, device=xyz.device) \
+            .index_reduce_(0, red.seg_id, wk, "amax")
+        is_best = (wk == best[red.seg_id]) & red.sorted_valid
+        contrib = torch.where(is_best.reshape(_tail(payload)), payload[red.order],
+                              -torch.inf)
+        out_payload = torch.full_like(payload, -torch.inf).index_reduce_(
+            0, red.seg_id, contrib, "amax")
+        out_payload = torch.where(red.mask.reshape(_tail(payload)), out_payload, 0.0)
+    return out_xyz, out_cov, red.mask, out_payload

@@ -207,7 +207,7 @@ def gauss_newton(
         frozen0 = torch.zeros((n_bl,), dtype=dt, device=dev)
         eig_sh = torch.zeros((6,), dtype=dt, device=dev)
         wdir = torch.zeros((6,), dtype=dt, device=dev)
-    st = GNState(x0, c0, torch.tensor(init_lambda, dtype=torch.float32, device=dev),
+    st = GNState(x0, c0, torch.full((), init_lambda, dtype=torch.float32, device=dev),
                  H0, g0, eig0, frozen0, eig_sh, wdir)
 
     for i in range(iters):

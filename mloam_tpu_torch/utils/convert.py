@@ -19,6 +19,8 @@ from mloam_tpu_torch import config as C
 from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage
 from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.frontend.features import FeatCloud, FeatureFrame
+from mloam_tpu_torch.mapping.keyframes import KeyframeDB
+from mloam_tpu_torch.mapping.mapper import MapperState, SurroundMap
 from mloam_tpu_torch.odometry.estimator import WindowState
 from mloam_tpu_torch.odometry.initializer import MotionBuffer
 from mloam_tpu_torch.sim.world import Trajectory, World
@@ -26,11 +28,14 @@ from mloam_tpu_torch.solver.marginalization import QuadPrior
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    a = np.asarray(a)
+    """A tensor that owns its memory: a copy, never a view of ``a`` (a JAX
+    array's numpy view is read-only, and the port writes some state, such
+    as the keyframe ring, in place)."""
+    a = np.array(a, order="C")
     if dtype is None:
         dtype = {"f": torch.float32, "i": torch.int32, "u": torch.int32,
                  "b": torch.bool}[a.dtype.kind]
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 def config_from_reference(d: dict) -> C.MloamConfig:
@@ -107,6 +112,38 @@ def motion_buffer_from_numpy(buf, device="cpu") -> MotionBuffer:
     return MotionBuffer(_t(ref_q, device), _t(ref_t, device), _t(tgt_q, device),
                         _t(tgt_t, device), _t(mask, device, torch.bool),
                         _t(head, device, torch.int32))
+
+
+def keyframe_db_from_numpy(db, device="cpu") -> KeyframeDB:
+    poses, cov, corner, surf, outlier, valid, head = tuple(db)
+    return KeyframeDB(
+        poses=pose_from_numpy(poses, device), cov=_t(cov, device),
+        corner=featcloud_from_numpy(corner, device),
+        surf=featcloud_from_numpy(surf, device),
+        outlier=featcloud_from_numpy(outlier, device),
+        valid=_t(valid, device, torch.bool), head=_t(head, device, torch.int32))
+
+
+def mapper_state_from_numpy(st, device="cpu") -> MapperState:
+    """The mapper's whole state: keyframe ring, drift correction, extrinsic
+    covariance, the cached surround map, the step counter (a host int here)
+    and the degeneracy gate's persistence state."""
+    (db, pose_map_odom, last_kf_pose, ext_cov, cov_meas, cache, step,
+     deg_dir, deg_count) = tuple(st)
+    c_xyz, c_mask, s_xyz, s_mask, center, head, valid = tuple(cache)
+    return MapperState(
+        db=keyframe_db_from_numpy(db, device),
+        pose_map_odom=pose_from_numpy(pose_map_odom, device),
+        last_kf_pose=pose_from_numpy(last_kf_pose, device),
+        ext_cov=_t(ext_cov, device, torch.float32),
+        cov_meas=_t(cov_meas, device, torch.float32),
+        cache=SurroundMap(_t(c_xyz, device), _t(c_mask, device, torch.bool),
+                          _t(s_xyz, device), _t(s_mask, device, torch.bool),
+                          _t(center, device), _t(head, device, torch.int32),
+                          _t(valid, device, torch.bool)),
+        step=int(step),
+        deg_dir=_t(deg_dir, device, torch.float32),
+        deg_count=_t(deg_count, device, torch.int32))
 
 
 def world_from_numpy(w, device="cpu") -> World:

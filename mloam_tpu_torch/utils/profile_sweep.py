@@ -1,9 +1,11 @@
 """Where one steady sweep spends its time on the GPU.
 
-    python -m mloam_tpu_torch.utils.profile_sweep [n_sweeps] [trace.json]
+    python -m mloam_tpu_torch.utils.profile_sweep [n_sweeps] [trace.json] [--mapping]
 
 Warms the single-LiDAR pipeline at the full width of the synthetic platform,
-then drives ``OdometryPipeline.process`` on fresh sweeps: ``n_sweeps``
+then drives ``OdometryPipeline.process`` (with ``--mapping``:
+``FullPipeline.process``, warmed until its map holds keyframes; every
+second sweep is then mapped) on fresh sweeps: ``n_sweeps``
 untraced, whose wall time and stage times (the pipeline's own
 ``utils/timing`` spans) are printed, and ``n_sweeps`` under
 ``torch.profiler``, from which come the device-busy time and idle share, the
@@ -22,17 +24,18 @@ import torch
 from mloam_tpu_torch import resolve_device
 from mloam_tpu_torch.core.rangeimage import RangeImage
 from mloam_tpu_torch.models import platforms, run_synthetic
-from mloam_tpu_torch.models.pipeline import OdometryPipeline
+from mloam_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
 from mloam_tpu_torch.utils import timing
 
 
-def main(n_sweeps: int = 3, trace_path: str | None = None):
+def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False):
     dev = resolve_device(None)
     cfg = platforms.synthetic(n_lidars=1)
     warm = cfg.odometry.window_size + 3
     imgs, _ = run_synthetic.render(cfg, warm + 2 * n_sweeps, seed=0, device=dev)
     frames = iter(RangeImage(*(f[i] for f in imgs)) for i in range(imgs[0].shape[0]))
-    pipe = OdometryPipeline(cfg, device=dev)
+    pipe = (FullPipeline if mapping else OdometryPipeline)(cfg, device=dev)
+    stages = ("odom_mea_pre", "odom_tracker", "odom_solver") + (("map_step",) if mapping else ())
     for _ in range(warm):
         pipe.process([next(frames)])
 
@@ -45,8 +48,8 @@ def main(n_sweeps: int = 3, trace_path: str | None = None):
     print(json.dumps({
         "untraced_sweeps": n_sweeps,
         "wall_ms_per_sweep_untraced": (time.perf_counter() - t0) * 1e3 / n_sweeps,
-        "stage_ms": {k: [x * 1e3 for x in timing._registry[k]]
-                     for k in ("odom_mea_pre", "odom_tracker", "odom_solver")},
+        "mapping": mapping,
+        "stage_ms": {k: [x * 1e3 for x in timing._registry[k]] for k in stages},
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
@@ -88,5 +91,6 @@ def main(n_sweeps: int = 3, trace_path: str | None = None):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 3,
-         sys.argv[2] if len(sys.argv) > 2 else None)
+    args = [a for a in sys.argv[1:] if a != "--mapping"]
+    main(int(args[0]) if args else 3, args[1] if len(args) > 1 else None,
+         mapping="--mapping" in sys.argv[1:])

@@ -38,6 +38,11 @@ def record(name: str, seconds: float):
     _registry[name].append(seconds)
 
 
+def last(name: str) -> float:
+    """The latest time recorded under ``name``, in seconds."""
+    return _registry[name][-1]
+
+
 def stats(name: str):
     v = np.asarray(_registry.get(name, []))
     if v.size == 0:

@@ -106,6 +106,32 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for():
     assert P.OdometryPipeline(cfg, device="cpu").device.type == "cpu"
 
 
+def test_full_pipeline_defaults_to_the_gpu_and_raises_without_one():
+    """``FullPipeline(cfg)`` with no device resolves to ``cuda``, as
+    ``OdometryPipeline`` does, and raises here; on the CPU only when asked."""
+    if not _no_gpu():
+        pytest.skip("needs a machine without a CUDA device")
+    cfg = platforms.synthetic()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.FullPipeline(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.FullPipeline(cfg, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_synthetic.run(n_frames=2, verbose=False, mapping=True)
+    small = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, max_keyframes=2, cap_map_corner=8, cap_map_surf=8))
+    pipe = P.FullPipeline(small, device="cpu")
+    assert pipe.device.type == "cpu" and pipe.odom.device.type == "cpu"
+    assert pipe.mapper_state.db.valid.device.type == "cpu"
+
+
+def test_the_mapping_modules_are_scanned_for_imports():
+    """The import scan covers the modules this slice adds."""
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if p.is_relative_to(PKG)}
+    assert {"core/uncertainty.py", "core/cloud.py", "mapping/keyframes.py",
+            "mapping/mapper.py", "solver/feature_selection.py"} <= names
+
+
 def test_world_is_deterministic_in_the_generator():
     a = W.make_world(torch.Generator().manual_seed(5), device="cpu")
     b = W.make_world(torch.Generator().manual_seed(5), device="cpu")
@@ -234,7 +260,6 @@ NARROWED = {
     "skip_steady": lambda: P.OdometryPipeline(dataclasses.replace(
         platforms.synthetic(), tracker=dataclasses.replace(
             platforms.synthetic().tracker, skip_steady=True)), device="cpu"),
-    "full_pipeline": lambda: P.FullPipeline(platforms.synthetic()),
     "slam_pipeline": lambda: P.SlamPipeline(platforms.synthetic()),
     "analytic_false": lambda: E.optimize_window(
         E.init_window(platforms.synthetic(), 8, 8, device="cpu"),
