@@ -17,30 +17,49 @@ with the kernels' launch counters (every kernel launch counted where it is
 made) set to 0 just before it and checked just after against the count its
 sweeps must make:
 
-- the main path: single-LiDAR odometry, rendered sweep to refined pose, 40
+- the main path: single-LiDAR odometry, rendered sweep to refined pose, 24
   sweeps at the full width of the synthetic VLP-16 platform, ATE < 5 cm;
 - the rig path: a dual VLP-16 rig with known extrinsics (ESTIMATE_EXTRINSIC
-  0), 40 sweeps, ATE < 5 cm;
-- the calibration path: the same rig from fully unknown extrinsics, 90
+  0), 24 sweeps, ATE < 5 cm;
+- the calibration path: the same rig from fully unknown extrinsics, 64
   sweeps of rotation-rich motion through the lifecycle 2 -> 1 -> 0, which must
   complete with a final extrinsic error under 5 mrad and 2 cm;
 - the presets: 8 sweeps each of Oxford (2x HDL-32, 32x2160), KITTI (HDL-64,
   64x1800) and the Hercules vehicle (4x VLP-16, ESTIMATE_EXTRINSIC 1 as
   shipped), finite poses;
 - the map path: ``FullPipeline`` (odometry + uncertainty-aware keyframe
-  mapping, the default ``MappingConfig``) on the single VLP-16, 40 sweeps,
+  mapping, the default ``MappingConfig``) on the single VLP-16, 24 sweeps,
   map-frame and odometry ATE < 5 cm, at least 2 keyframes, positive
   semi-definite keyframe covariances, a finite non-empty outlier channel,
   one staleness read per mapped sweep;
 - the map rig path: the dual rig with known extrinsics and a prior
-  extrinsic covariance (the lidars' point covariances differ), 20 sweeps,
-  map-frame ATE < 5 cm.
+  extrinsic covariance (the lidars' point covariances differ), 14 sweeps,
+  map-frame ATE < 5 cm;
+- the tuned path: the realtime operating point (``realtime_tuned``: window
+  good-feature compaction, fewer iterations, tuned caps) on the single
+  VLP-16, 40 sweeps, and on the dual rig, 20 sweeps, ATE < 5 cm each;
+- the slam path: ``SlamPipeline`` (odometry + mapping + loop closure with
+  the FFT correlation seed) on the floor course of the JAX package's
+  ``tests/test_slam_e2e.py``, 110 sweeps: at least one loop, every loop
+  edge spanning at least 8 keyframes, the corrected keyframe ATE at most
+  1.10x the odometry's, per-sweep map ATE < 25 cm, the correlation
+  registration run, 12 k-NN launches per submitted detection, and the
+  host's waits for the device (CUDA's sync debug mode over every sweep)
+  only at the mapper's staleness read, ``eigh`` and a verified loop's
+  correction read and optimization, besides the pipelined flags' events;
+- the slam drift path: the JAX package's ``bench.py`` slam pass (the tuned
+  operating point, a 15 m surround map, range noise 0.03 m, 130 sweeps):
+  loops, keyframe ATE before and after the optimization and keyframe-sweep
+  times recorded, gated on finite outputs, the counters and the sync probe;
+- a pose-graph check: ``optimize_pose_graph`` on a 600-pose graph by
+  conjugate gradients against the dense solve of the same graph.
 
 The k-NN calls of the dual rig's window solve, of the calibration path's
-first warm sweeps in modes 2 and 1 and of the mapper's first match against a
-rebuilt surround map (both mapping paths), and the label propagation calls
-of the presets, are captured from those paths and held against the plain
-versions too.
+first warm sweeps in modes 2 and 1, of the mapper's first match against a
+rebuilt surround map (both mapping paths) and of the slam path's first loop
+detection (its two fine registrations: 12 calls), and the label propagation
+calls of the presets and of the tuned path, are captured from those paths
+and held against the plain versions too.
 
 One JSON object per line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -77,23 +96,40 @@ from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage  # noqa: E402
 from mloam_tpu_torch.core.se3 import Pose  # noqa: E402
 from mloam_tpu_torch.frontend import segmentation as S  # noqa: E402
 from mloam_tpu_torch.models import platforms, run_synthetic  # noqa: E402
+from mloam_tpu_torch.loop import global_registration as GREG  # noqa: E402
+from mloam_tpu_torch.loop import posegraph as PGraph  # noqa: E402
 from mloam_tpu_torch.mapping import mapper as MP  # noqa: E402
+from mloam_tpu_torch.models import pipeline as PIPE  # noqa: E402
 from mloam_tpu_torch.models.pipeline import OdometryPipeline  # noqa: E402
+from mloam_tpu_torch.parallel import sharded_pgo as PG  # noqa: E402
 from mloam_tpu_torch.ops import _build, hopper_knn, hopper_labels  # noqa: E402
 from mloam_tpu_torch.ops import knn as knn_ops  # noqa: E402
 from mloam_tpu_torch.utils import timing  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(0).multi_processor_count
-N_FRAMES = 40
+# the earlier paths' depths, cut as far as their gates allow so that the
+# script keeps to its time with the slam paths (main and rig 40, calibration
+# 90, map 40, map rig 20 sweeps before)
+N_FRAMES = 24
 ATE_GATE_M = 0.05
 KNN_RTOL = 1e-5
-CALIB_FRAMES = 90
+CALIB_FRAMES = 64
 CALIB_ROT_GATE_RAD = 5e-3
 CALIB_POS_GATE_M = 0.02
 PRESET_FRAMES = 8
-MAP_FRAMES = 40
-MAP_RIG_FRAMES = 20
+MAP_FRAMES = 24
+MAP_RIG_FRAMES = 14
+TUNED_FRAMES = 40
+TUNED_RIG_FRAMES = 20
+# the loop courses' gates (courses: run_synthetic.LOOP_COURSES)
+SLAM_MAP_ATE_GATE_M = 0.25
+SLAM_KF_ATE_RATIO = 1.10
+SLAM_MIN_LOOP_SPAN = 8
+DRIFT_WARM = 40          # bench.py's warm-up before sweep times count
+DRIFT_PROBE_FROM = 100   # sweeps probed for host waits (their times are kept apart)
+PGO_POSES = 600
+PGO_GATE_M = 1e-3
 # the dual rig's prior extrinsic covariance on the map rig path ([rho; phi]
 # diagonal: 1 cm and 3 mrad standard deviations)
 MAP_RIG_EXT_COV = (1e-4, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
@@ -357,12 +393,35 @@ def check_knn(name, q, r, m, k, ties=False):
         fail(f"knn {name}: {int(mismatch[:, :k - 1].sum())} indices differ "
              "at distinct distances")
     max_err = float(err[real].max()) if bool(real.any()) else 0.0
+    # where a slot's index differs, whether the two references' exact d²
+    # lie within 1 ulp of float32 (a near-tie the two roundings may order
+    # either way) or further apart (a fault)
+    differs = real & (i != ip)
+    q64, r64 = q.double()[:, None, :], r.double()
+    gap = (((q64 - r64[i]) ** 2).sum(-1) - ((q64 - r64[ip]) ** 2).sum(-1)).abs()
+    ulp = (torch.nextafter(dp, torch.full_like(dp, float("inf"))) - dp).double()
     return {"case": name, "nq": q.shape[0], "nr": r.shape[0], "k": k,
             "valid_refs": int(m.sum()), "max_abs_err": max_err,
             "lanes_per_query": hopper_knn.lanes_per_query(q.shape[0], SMS),
             "all_slots_equal": bool(torch.equal(i, ip)),
+            "slots_differing": int(differs.sum()),
+            "slots_differing_beyond_1ulp": int((differs & (gap > ulp)).sum()),
             "indices_compared": int(distinct.sum()),
             "kth_slot_index_differs": int(mismatch.sum())}
+
+
+def check_addcmul_fuses():
+    """``knn_plain`` holds the kernel's rounding only if ``torch.addcmul`` is
+    one fused multiply-add on the card, which PyTorch does not promise:
+    a + b·b − round(a + b·b)'s rounding error must survive, as an fma keeps
+    it and a separately rounded product loses it."""
+    g = torch.Generator().manual_seed(5)
+    b = (1 + torch.rand(4096, generator=g)).to(DEV)
+    fused = torch.addcmul(-(b * b), b, b)
+    exact = (b.double() ** 2 - (b * b).double()).float()
+    if not torch.equal(fused, exact) or not bool((fused != 0).any()):
+        fail("torch.addcmul is not one fused multiply-add on this card: knn_plain "
+             "would round distances unlike the kernel (ops/knn.pairwise_sqdist)")
 
 
 def knn_bound_ms(nq, nr, n_valid, k):
@@ -419,6 +478,18 @@ def knn_tie_cases():
     cases = [(f"ties_grid_k{k}", q, grid, ones, k) for k in (1, 5, 8)]
     cases.append(("ties_grid_70pct_valid_k8", q, grid, part, 8))
     cases.append(("ties_grid_6144q_k5", q_many, grid, part, 5))
+    # twins: each query on the diagonal x = y has two references at swapped
+    # x / y offsets, at one exact distance; the kernel's fused multiply-adds
+    # (fma(dz, dz, fma(dx, dx, dy*dy))) round the two apart for about one
+    # query in ten, where a separately rounded sum would tie them
+    s = torch.rand(512, generator=g) * 40 - 20
+    qz = torch.rand(512, generator=g) * 2
+    u, v = torch.rand(512, generator=g) * 2 + 0.1, torch.rand(512, generator=g) * 2 + 0.1
+    w = torch.rand(512, generator=g) * 0.5
+    twins = torch.cat([torch.stack([s + v, s + u, qz + w], -1),
+                       torch.stack([s + u, s + v, qz + w], -1)]).to(DEV)
+    cases.append(("fma_rounded_twins_k5", torch.stack([s, s, qz], -1).to(DEV), twins,
+                  torch.ones(1024, dtype=torch.bool, device=DEV), 5))
     return cases
 
 
@@ -568,7 +639,9 @@ def phase_kernels(cfg, rig_cfg):
     k1_other = [label_timing(f"random_{r}x{c}", random_label_case(r, c, r + c), rounds)
                 for (r, c) in ((32, 2160), (64, 1800))]
 
-    # ---- K2 correctness: edge cases, exact ties, the main path's calls
+    # ---- K2 correctness: knn_plain's fused sums, edge cases, exact ties,
+    # the main path's calls
+    check_addcmul_fuses()
     knn_checks = [check_knn(*c) for c in knn_edge_cases()]
     knn_checks += [check_knn(*c, ties=True) for c in knn_tie_cases()]
     names = ("tracker_edge", "tracker_plane", "window_edge", "window_plane")
@@ -1034,50 +1107,20 @@ def map_step_probe_ms(pipe, cfg, reps=3):
 
 def map_step_sync_points(pipe, cfg):
     """One more mapper step, on a copy of the final state with the last
-    mapped sweep's clouds, under CUDA's sync debug mode, once reusing the
-    cached surround map and once rebuilding it: the source lines at which
-    the host waited for the device, with their counts. The step may wait only
-    at its one staleness read and at ``eigh`` (which synchronises to check
-    its solver status); any other line of the package fails the run. A wait
-    that surfaces outside the package's frames (a warning raised in a
-    C++ call that let go of the interpreter is reported at the next Python
-    line that runs) is listed as such, not failed."""
+    mapped sweep's clouds, under the sync probe (``SyncProbe``), once
+    reusing the cached surround map and once rebuilding it: the step may
+    wait only at its one staleness read and at ``eigh`` (which synchronises
+    to check its solver status)."""
     corner, surf = pipe.last_merged
     pose = pipe.odom.world_pose
-    out = {}
+    probe = SyncProbe()
     for kind in ("reuse", "rebuild"):
         st = _probe_state(pipe, kind)
         torch.cuda.synchronize()
-        stacks = []
-
-        def record(message, category, filename, lineno, file=None, line=None):
-            if "synchroniz" in str(message).lower():
-                stacks.append(traceback.extract_stack()[:-1])
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                _, mout = MP.mapper_step(st, pose, corner, surf, cfg)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        _, mout = probe.run(kind, lambda: MP.mapper_step(st, pose, corner, surf, cfg))
         if mout.stale != (kind == "rebuild"):
             fail(f"sync probe: the {kind} step took the other branch")
-        # each wait is put on the innermost frame of the package's own code
-        lines = collections.Counter()
-        for stack in stacks:
-            own = [f for f in stack if f"{os.sep}mloam_tpu_torch{os.sep}" in f.filename]
-            f = own[-1] if own else stack[-1]
-            where = "" if own else "outside the package: "
-            lines[f"{where}{pathlib.Path(f.filename).name}:{f.lineno}: {f.line}"] += 1
-        bad = [k for k in lines if not k.startswith("outside")
-               and not ("eigh" in k or "eigvalsh" in k or "stale = bool(" in k)]
-        if bad:
-            fail(f"the mapper step waits for the device outside its staleness "
-                 f"read and eigh: {bad}")
-        out[kind] = dict(lines)
-    return out
+    return probe.check("the mapper step")
 
 
 def map_knn_checks(prefix, captured):
@@ -1090,10 +1133,388 @@ def map_knn_checks(prefix, captured):
         name = f"{prefix}{kind}"
         chk = check_knn(name, q, r, m, k)
         if not chk["all_slots_equal"]:
-            fail(f"knn {name}: indices differ from the plain version at some slot")
+            fail(f"knn {name}: indices differ from the plain version at "
+                 f"{chk['slots_differing']} slots, {chk['slots_differing_beyond_1ulp']} "
+                 "of them between references further apart than 1 ulp")
         checks.append(chk)
         shapes.append(knn_timing(name, q, r, m, k, chk))
     return checks, shapes
+
+
+# --------------------------------------------------------------------------
+# the tuned operating point
+# --------------------------------------------------------------------------
+
+class SweepCounter:
+    """Launch counters checked after every sweep: ``want(i, out, pipe)``
+    gives the (K1, K2) launches sweep ``i`` must make."""
+
+    def __init__(self, name, want):
+        self.name, self.want = name, want
+        self.seen = {"labels": 0, "knn": 0}
+
+    def __call__(self, i, out, pipe):
+        d_l = hopper_labels.launches - self.seen["labels"]
+        d_k = hopper_knn.launches - self.seen["knn"]
+        w_l, w_k = self.want(i, out, pipe)
+        if (d_l, d_k) != (w_l, w_k):
+            fail(f"{self.name}, sweep {i}: labels {d_l} (expected {w_l}), knn {d_k} "
+                 f"(expected {w_k})")
+        self.seen.update(labels=hopper_labels.launches, knn=hopper_knn.launches)
+
+
+def phase_tuned_path(name, cfg, n_frames, extrinsics=None):
+    """``realtime_tuned`` through ``run_synthetic.run``; counters after every
+    sweep. The first steady sweep's label-propagation input is kept, to be
+    held against the plain version at the path's rounds and at 8."""
+    L = cfg.rig.n_lidars
+    ws = cfg.odometry.window_size
+    captured = []
+    real_labels = hopper_labels.propagate_labels
+
+    def rec_labels(labels, ch, cv, rounds=3):
+        if not captured:
+            captured.append((labels.clone(), ch.clone(), cv.clone(), rounds))
+        return real_labels(labels, ch, cv, rounds)
+
+    counter = SweepCounter(name, lambda i, out, pipe: (L, knn_per_sweep(i, 0, L, ws)))
+
+    def on_sweep(i, out, pipe):
+        counter(i, out, pipe)
+        hopper_labels.propagate_labels = rec_labels if i + 1 == ws + 1 else real_labels
+
+    zero_counters()
+    try:
+        res = run_synthetic.run(n_frames=n_frames, seed=0, verbose=False, device=DEV,
+                                cfg=cfg, extrinsics=extrinsics, on_sweep=on_sweep)
+    finally:
+        hopper_labels.propagate_labels = real_labels
+    n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+    check_counters(name, n_labels, n_knn, L * n_frames,
+                   expected_knn(res["modes"], L, ws, 0))
+    path_m = check_trajectory(name, res, n_frames)
+    oc = cfg.odometry
+    emit({name: {
+        "frames": n_frames, "lidars": L, "ate_m": res["ate_m"], "path_m": path_m,
+        "steady_ms_median": res["steady_ms_median"], "steady_fps": res["fps"],
+        "operating_point": {"window_gn_iters": oc.gn_iters, "gf_ratio": oc.gf_ratio,
+                            "gf_method": oc.gf_method, "gf_compact": oc.gf_compact,
+                            "tracker_gn_iters": cfg.tracker.gn_iters,
+                            "label_iters": cfg.segmenter.label_iters,
+                            "label_rounds": captured[0][3] if captured else None,
+                            "localmap_precaps": [oc.localmap_precap_corner,
+                                                 oc.localmap_precap_surf]},
+        "launches": {"propagate_labels": n_labels, "knn": n_knn},
+        "width": width(cfg),
+    }})
+    if not captured:
+        fail(f"{name}: no label-propagation call captured")
+    return {"propagate_labels": n_labels, "knn": n_knn}, captured[0], res
+
+
+# --------------------------------------------------------------------------
+# the slam paths
+# --------------------------------------------------------------------------
+
+class SyncProbe:
+    """CUDA's sync debug mode over the calls it runs: every place the host
+    waited for the device, by the innermost line of the package's own code,
+    counted per kind of call. A wait inside ``SlamPipeline._accept_loop`` (a
+    verified loop: the correction read and the optimization) is kept under
+    that name. A wait at any other line of the package than the mapper's
+    staleness read and ``eigh`` fails the run; one that surfaces outside
+    the package's frames (a warning raised in a C++ call that let go of the
+    interpreter is reported at the next Python line that runs) is listed
+    as such. The pipelined flags' event waits are not device
+    synchronisations and are counted by the pipeline itself
+    (``pipeline.waits``)."""
+
+    ALLOWED = ("eigh", "eigvalsh", "stale = bool(")
+
+    def __init__(self):
+        self.lines = {}
+        self.bad = []
+
+    def run(self, kind, fn):
+        stacks = []
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message).lower():
+                stacks.append(traceback.extract_stack()[:-1])
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts = self.lines.setdefault(kind, collections.Counter())
+        for stack in stacks:
+            # the frames under this probe's own call of ``fn``
+            mine = [k for k, f in enumerate(stack)
+                    if pathlib.Path(f.filename).name == pathlib.Path(__file__).name]
+            stack = stack[mine[-1] + 1:] if mine else stack
+            own = [f for f in stack if f"{os.sep}mloam_tpu_torch{os.sep}" in f.filename]
+            accept = any(f.name == "_accept_loop" for f in stack)
+            f = own[-1] if own else (stack[-1] if stack else None)
+            if f is None:
+                counts["outside the package: after the probed call"] += 1
+                continue
+            where = ("accept_loop: " if accept else "") + ("" if own else "outside the package: ")
+            key = f"{where}{pathlib.Path(f.filename).name}:{f.lineno}: {f.line}"
+            counts[key] += 1
+            if own and not accept and not any(a in key for a in self.ALLOWED):
+                self.bad.append(key)
+        return out
+
+    def check(self, name):
+        if self.bad:
+            fail(f"{name}: the host waited for the device outside the staleness "
+                 f"read, eigh and a verified loop: {sorted(set(self.bad))}")
+        return {k: dict(v) for k, v in self.lines.items()}
+
+
+def phase_slam_path(name, course_name, base_cfg, probe_from=0, gate_loops=True):
+    """``SlamPipeline`` through ``run_synthetic.run(slam=True)`` on the loop
+    course ``course_name`` built on ``base_cfg``. After every
+    sweep: K1 once per lidar; K2 the odometry's, the mapper's (2 per outer
+    iteration on mapped sweeps once the map holds a keyframe) and 12 per
+    detection submitted in the sweep (two fine registrations of three outer
+    iterations, an edge and a plane call each). The 12 k-NN inputs of the
+    first detection are kept, and every call of the correlation
+    registration is counted. Sweeps from ``probe_from`` on run under the
+    sync probe."""
+    cfg, n_frames, seed, course = run_synthetic.loop_course(course_name, base_cfg)
+    L = cfg.rig.n_lidars
+    ws = cfg.odometry.window_size
+    mc = cfg.mapping
+    per_detect = 12 if cfg.loop.use_global_registration else 6
+    seen = {"mapped": 0, "detections": 0}
+    det_calls, in_detection = [], []
+    corr_calls = [0]
+    real = {"knn": hopper_knn.knn, "try": PGraph.try_close_loop,
+            "corr": GREG.register_correlation}
+
+    def rec_knn(q, r, m, k):
+        if in_detection and len(det_calls) < per_detect:
+            det_calls.append((q.clone(), r.clone(), m.clone(), k))
+        return real["knn"](q, r, m, k)
+
+    def rec_try(*a, **kw):
+        first = not det_calls
+        if first:
+            in_detection.append(True)
+        try:
+            return real["try"](*a, **kw)
+        finally:
+            in_detection.clear()
+
+    def rec_corr(*a, **kw):
+        corr_calls[0] += 1
+        return real["corr"](*a, **kw)
+
+    def want(i, out, pipe):
+        k = knn_per_sweep(i, 0, L, ws)
+        if out.full.mapped:
+            k += 2 * mc.outer_iters if seen["mapped"] > 0 else 0
+            seen["mapped"] += 1
+        new = pipe.n_detections - seen["detections"]
+        seen["detections"] = pipe.n_detections
+        return L, k + per_detect * new
+
+    counter = SweepCounter(name, want)
+    probe = SyncProbe()
+    pipes = []
+
+    def on_sweep(i, out, pipe):
+        counter(i, out, pipe)
+        pipes[:] = [pipe]
+        if i + 1 >= probe_from and "probed" not in pipe.__dict__:
+            real_process = type(pipe).process
+
+            def probed(frames, _pipe=pipe):
+                kind = ("detection_drained" if _pipe._pending_verify is not None
+                        else "kf_flag_drained" if _pipe._pending_kf is not None else "other")
+                return probe.run(kind, lambda: real_process(_pipe, frames))
+            pipe.process = probed
+            pipe.__dict__["probed"] = True
+
+    zero_counters()
+    waits0 = collections.Counter(PIPE.waits)
+    reads0 = MP.stale_reads
+    hopper_knn.knn, PGraph.try_close_loop, GREG.register_correlation = rec_knn, rec_try, rec_corr
+    try:
+        res = run_synthetic.run(n_frames=n_frames, seed=seed, verbose=False, device=DEV,
+                                cfg=cfg, slam=True, on_sweep=on_sweep, **course)
+    finally:
+        hopper_knn.knn, PGraph.try_close_loop, GREG.register_correlation = (
+            real["knn"], real["try"], real["corr"])
+    pipe = pipes[0]
+    n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+    n_mapped = sum(res["mapped"])
+    # the end-of-run flush may submit one more detection after the last sweep
+    check_counters(name, n_labels, n_knn, L * n_frames,
+                   expected_knn(res["modes"], L, ws, 0)
+                   + 2 * mc.outer_iters * max(n_mapped - 1, 0)
+                   + per_detect * pipe.n_detections)
+    sync = probe.check(name)
+    waits = {k: PIPE.waits[k] - waits0.get(k, 0) for k in PIPE.waits}
+    ls = pipe.loop_state
+    lv = ls.loop_valid.cpu().numpy()
+    li, lj = ls.loop_i.cpu().numpy()[lv], ls.loop_j.cpu().numpy()[lv]
+    # each loop edge against the truth of its two keyframes' sweeps
+    edge_err = []
+    kf_idx = res["kf_gt_idx"]
+    for e, (a, b) in zip(np.flatnonzero(lv), zip(li, lj)):
+        gq, gt_ = torch.from_numpy(res["gt_q"]), torch.from_numpy(res["gt_t"])
+        z_gt = se3.relative(Pose(gq[kf_idx[a]], gt_[kf_idx[a]]), Pose(gq[kf_idx[b]], gt_[kf_idx[b]]))
+        err = se3.boxminus(Pose(ls.loop_zq[e].cpu(), ls.loop_zt[e].cpu()), z_gt)
+        edge_err.append({"edge": [int(a), int(b)], "trans_err_m": float(err[:3].norm()),
+                         "rot_err_rad": float(err[3:].norm()),
+                         "truth_dist_m": float(z_gt.t.norm()),
+                         "query_points": [int(ls.surf.mask[b].sum()),
+                                          int(ls.corner.mask[b].sum())]})
+    check_trajectory(name, res, n_frames, gate=False)
+    finite = (np.isfinite(res["map_est_t"]).all() and np.isfinite(res["kf_corr_t"]).all()
+              and np.isfinite(res["kf_corr_q"]).all() and np.isfinite(res["kf_odom_t"]).all())
+    if not finite:
+        fail(f"{name}: non-finite map or keyframe poses")
+    n_kf = len(res["kf_gt_idx"])
+    if n_kf < 2:
+        fail(f"{name}: only {n_kf} keyframe(s) entered the loop graph")
+    if int(lv.sum()) != res["n_loops"]:
+        fail(f"{name}: {int(lv.sum())} loop edges recorded for {res['n_loops']} loops")
+    if res["n_detections"] and corr_calls[0] == 0 and cfg.loop.use_global_registration:
+        fail(f"{name}: the correlation registration never ran")
+    if waits.get("loop_correction_read", 0) != res["n_loops"] and cfg.loop.temporal_consistency_n == 1:
+        fail(f"{name}: {waits.get('loop_correction_read', 0)} correction reads for "
+             f"{res['n_loops']} loops")
+    by_kind = res["sweep_ms_by_kind"]
+    steady = [(i, k, t) for i, (k, t) in enumerate(zip(res["sweep_kinds"], res["sweep_ms"]))]
+    unprobed = [x for x in steady if DRIFT_WARM <= x[0] < probe_from] if probe_from else []
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if len(xs) else None
+
+    kf_unprobed = [t for _, k, t in unprobed if k == "keyframe"]
+    out = {
+        "frames": n_frames, "lidars": L, "world_seed": seed, "course": course,
+        "loop_capacity": cfg.loop.capacity,
+        "map_ate_m": res["map_ate_m"], "odom_ate_m": res["ate_m"],
+        "keyframes": n_kf, "n_loops": res["n_loops"], "n_detections": res["n_detections"],
+        "loop_edges": [[int(a), int(b)] for a, b in zip(li, lj)],
+        "loop_edge_err_vs_truth": edge_err,
+        "kf_ate_odom_m": res["kf_ate_odom_m"], "kf_ate_corr_m": res["kf_ate_corr_m"],
+        "register_correlation_calls": corr_calls[0],
+        "sweep_ms_median_by_kind": {k: _median(v) for k, v in by_kind.items()},
+        "sweeps_by_kind": {k: len(v) for k, v in by_kind.items()},
+        "host_waits_by_kind": waits,
+        "sync_probe_from_sweep": probe_from,
+        "sync_points_by_sweep_kind": sync,
+        "stale_reads": MP.stale_reads - reads0,
+        "launches": {"propagate_labels": n_labels, "knn": n_knn},
+        "width": width(cfg),
+    }
+    if probe_from:
+        out.update(unprobed_sweeps=[DRIFT_WARM, probe_from],
+                   kf_sweep_ms_p50=pct(kf_unprobed, 50), kf_sweep_ms_p95=pct(kf_unprobed, 95),
+                   kf_sweeps_unprobed=len(kf_unprobed),
+                   all_sweep_ms_p50_unprobed=pct([t for *_, t in unprobed], 50))
+    emit({name: out})
+    if gate_loops:
+        if res["n_loops"] < 1:
+            fail(f"{name}: no loop closed")
+        if (lj - li).min() < SLAM_MIN_LOOP_SPAN:
+            fail(f"{name}: a loop edge spans fewer than {SLAM_MIN_LOOP_SPAN} keyframes: "
+                 f"{list(zip(li.tolist(), lj.tolist()))}")
+        if not res["kf_ate_corr_m"] <= SLAM_KF_ATE_RATIO * res["kf_ate_odom_m"]:
+            fail(f"{name}: the optimization degraded the keyframes: "
+                 f"{res['kf_ate_odom_m']:.4f} -> {res['kf_ate_corr_m']:.4f} m")
+        if not res["map_ate_m"] < SLAM_MAP_ATE_GATE_M:
+            fail(f"{name}: map ATE {res['map_ate_m']:.4f} m is not under {SLAM_MAP_ATE_GATE_M} m")
+    if res["n_detections"] and len(det_calls) != per_detect:
+        fail(f"{name}: the first detection made {len(det_calls)} k-NN calls, expected {per_detect}")
+    return {"propagate_labels": n_labels, "knn": n_knn}, det_calls
+
+
+def loop_knn_checks(captured):
+    """Hold the first detection's 12 k-NN calls against the plain version at
+    every slot; time the first registration's edge and plane calls."""
+    checks, shapes = [], []
+    for n, (q, r, m, k) in enumerate(captured):
+        reg = "pose_seed" if n < 6 else "fft_seed"
+        name = f"loop_reg_{reg}_outer{(n % 6) // 2}_{'plane' if n % 2 == 0 else 'edge'}"
+        chk = check_knn(name, q, r, m, k)
+        if not chk["all_slots_equal"]:
+            fail(f"knn {name}: indices differ from the plain version at "
+                 f"{chk['slots_differing']} slots, {chk['slots_differing_beyond_1ulp']} "
+                 "of them between references further apart than 1 ulp")
+        checks.append(chk)
+        if n < 2:
+            shapes.append(knn_timing(f"loop_reg_{'plane' if n % 2 == 0 else 'edge'}",
+                                     q, r, m, k, chk))
+    return checks, shapes
+
+
+# --------------------------------------------------------------------------
+# pose-graph check
+# --------------------------------------------------------------------------
+
+def phase_pgo_check():
+    """A 600-pose ring (drifted start, sequential edges with noise, loop
+    edges every 50 poses, padding edges of weight 0) optimized by conjugate
+    gradients (``solver="auto"`` picks it beyond 512 poses) and by the dense
+    Cholesky on the same graph, on the card."""
+    g = torch.Generator().manual_seed(21)
+    n = PGO_POSES
+    ang = torch.arange(n) * (2 * np.pi / n)
+    xi = torch.zeros(n, 6)
+    xi[:, 0], xi[:, 1] = 60 * torch.cos(ang), 60 * torch.sin(ang)
+    xi[:, 5] = ang + np.pi / 2
+    gt = se3.exp(xi)
+    gt = Pose(gt.q, xi[:, :3].clone())
+    i = torch.arange(n - 1)
+    rel = se3.relative(Pose(gt.q[i], gt.t[i]), Pose(gt.q[i + 1], gt.t[i + 1]))
+    rel = se3.compose(rel, se3.exp(5e-4 * torch.randn(n - 1, 6, generator=g)))
+    li = torch.arange(0, n - 50, 50)
+    lj = li + 50
+    lrel = se3.relative(Pose(gt.q[li], gt.t[li]), Pose(gt.q[lj], gt.t[lj]))
+    pad = 8
+    edges = PG.PoseGraphEdges(
+        i=torch.cat([i, li, torch.zeros(pad, dtype=torch.int64)]).to(DEV),
+        j=torch.cat([i + 1, lj, torch.zeros(pad, dtype=torch.int64)]).to(DEV),
+        z_q=torch.cat([rel.q, lrel.q, Pose.identity((pad,)).q]).to(DEV),
+        z_t=torch.cat([rel.t, lrel.t, torch.zeros(pad, 3)]).to(DEV),
+        weight=torch.cat([torch.ones(n - 1, 6), 5 * torch.ones(len(li), 6),
+                          torch.zeros(pad, 6)]).to(DEV))
+    drift = se3.exp(torch.outer(torch.arange(n, dtype=torch.float32),
+                                torch.tensor([0.01, 0.005, 0, 0, 0, 0.0005])))
+    init = se3.compose(gt, drift)
+    init = Pose(init.q.to(DEV), init.t.to(DEV))
+    out, times = {}, {}
+    for solver in ("auto", "dense"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[solver] = PG.optimize_pose_graph(init, edges, iters=3, solver=solver)
+        torch.cuda.synchronize()
+        times[solver] = (time.perf_counter() - t) * 1e3
+    dt = float((out["auto"].t - out["dense"].t).norm(dim=-1).max())
+    dq = float(torch.minimum((out["auto"].q - out["dense"].q).abs().amax(-1),
+                             (out["auto"].q + out["dense"].q).abs().amax(-1)).max())
+
+    def cost(p):
+        r, _ = PG._linearize_sparse(p, edges)
+        return float(0.5 * (r * r).sum())
+
+    emit({"pgo_check": {"poses": n, "edges": int(edges.i.shape[0]), "iters": 3,
+                        "cg_iters": n + n // 4, "ms": {"cg": times["auto"], "dense": times["dense"]},
+                        "max_abs_diff_t_m": dt, "max_abs_diff_q": dq,
+                        "cost": {"init": cost(init), "cg": cost(out["auto"]),
+                                 "dense": cost(out["dense"])}}})
+    if not (np.isfinite(dt) and dt < PGO_GATE_M and dq < PGO_GATE_M):
+        fail(f"pgo check: cg and dense differ by {dt} m / {dq} (gate {PGO_GATE_M})")
 
 
 def main():
@@ -1144,6 +1565,30 @@ def main():
         other["launches"] = by_shape.get(shape, 0)
         if other["launches"] == 0:
             fail(f"labels: no path launched the kernel at {shape}")
+    # the tuned operating point, the slam paths and the pose-graph check
+    tuned_cfg = platforms.realtime_tuned(cfg)
+    tuned_rig_cfg = platforms.realtime_tuned(rig_cfg)
+    by_path["tuned_path"], tuned_labels, _ = phase_tuned_path(
+        "tuned_path", tuned_cfg, TUNED_FRAMES)
+    by_path["tuned_rig_path"], _, _ = phase_tuned_path(
+        "tuned_rig_path", tuned_rig_cfg, TUNED_RIG_FRAMES, extrinsics=RIG_X)
+    lab, ch, cv, rounds = tuned_labels
+    tuned_label_checks = check_labels("tuned_path", (lab, ch, cv), (rounds, 8))
+    emit({"kernel_checks": {"labels_tuned": tuned_label_checks}})
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in tuned_label_checks])
+    k1["tuned_path"] = {f"rounds_{n}": label_timing(f"tuned_path_{n}_rounds", (lab, ch, cv), n)
+                        for n in sorted({rounds, 8})}
+
+    by_path["slam_path"], det_calls = phase_slam_path("slam_path", "floor", cfg)
+    loop_checks, loop_shapes = loop_knn_checks(det_calls)
+    emit({"kernel_checks": {"knn_loop": loop_checks}})
+    k2["main_path_shapes"] += loop_shapes
+    k2["max_abs_err"] = max([k2["max_abs_err"]] + [c["max_abs_err"] for c in loop_checks])
+
+    by_path["slam_drift_path"], _ = phase_slam_path(
+        "slam_drift_path", "drift", cfg, probe_from=DRIFT_PROBE_FROM, gate_loops=False)
+    phase_pgo_check()
+
     for kern, key in ((k1, "propagate_labels"), (k2, "knn")):
         kern["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         kern["launches"] = sum(kern["launches_by_path"].values())

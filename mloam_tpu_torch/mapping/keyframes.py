@@ -56,7 +56,7 @@ def empty_db(k: int, cap_corner: int, cap_surf: int, cap_outlier: int = 0,
     )
 
 
-def _write_slot(ring: torch.Tensor, i: torch.Tensor, new: torch.Tensor,
+def write_slot(ring: torch.Tensor, i: torch.Tensor, new: torch.Tensor,
                 cond: torch.Tensor | None):
     """ring[i] = cond ? new : ring[i], for a one-element index tensor ``i``
     (a 0-dim index would be read on the host)."""
@@ -80,8 +80,8 @@ def insert(db: KeyframeDB, pose: Pose, cov: torch.Tensor, corner: FeatCloud,
     if outlier is not None:
         pairs += list(zip(db.outlier, outlier))
     for ring, new in pairs:
-        _write_slot(ring, i, new, where)
-    _write_slot(db.valid, i, torch.ones((), dtype=torch.bool, device=i.device), where)
+        write_slot(ring, i, new, where)
+    write_slot(db.valid, i, torch.ones((), dtype=torch.bool, device=i.device), where)
     step = 1 if where is None else where.to(torch.int32)
     return db._replace(head=db.head + step)
 

@@ -229,29 +229,6 @@ def refresh_surround(state: MapperState, center: torch.Tensor,
                        torch.ones((), dtype=torch.bool, device=center.device)), True
 
 
-def _normal_equations(ec: factors.EdgeCorr, pc: factors.PlaneCorr, mc):
-    """Closed-form single-pose normal equations (the analytic
-    LidarMap{Edge,PlaneNorm}Factor Jacobians, batched): linearize_fn(T, mu)."""
-
-    def linearize_fn(T: Pose, mu=1.0):
-        re = factors.edge_residual(se3.transform_points(T, ec.p), ec)
-        we = factors.robust_weights(torch.sum(re * re, -1), ec.w, mc.loss_mode,
-                                    mc.huber_delta, gm_c=mc.gm_c, gnc_mu=mu)
-        rp = factors.plane_residual(se3.transform_points(T, pc.p), pc)
-        wp = factors.robust_weights(rp * rp, pc.w, mc.loss_mode,
-                                    mc.huber_delta, gm_c=mc.gm_c, gnc_mu=mu)
-        Je = factors.edge_point_jacobian(T.q.expand(ec.p.shape[0], 4), ec)  # [N, 3, 6]
-        Jp = factors.plane_point_jacobian(T.q.expand(pc.p.shape[0], 4), pc)  # [N, 6]
-        Jew = Je * we[:, None, None]
-        Jpw = Jp * wp[:, None]
-        H = Jew.reshape(-1, 6).T @ Je.reshape(-1, 6) + Jpw.T @ Jp
-        g = Jew.reshape(-1, 6).T @ re.reshape(-1) + Jpw.T @ rp
-        cost = 0.5 * (torch.sum(we * torch.sum(re * re, -1)) + torch.sum(wp * rp * rp))
-        return H, g, cost
-
-    return linearize_fn
-
-
 def _select_features(pc, ec, pose: Pose, state: MapperState, cfg: MloamConfig):
     """Good-feature selection of the configured method (the JAX package's
     ``scan_to_map`` branch on ``gf_method``)."""
@@ -321,7 +298,8 @@ def scan_to_map(state: MapperState, pose_pred: Pose, corner: FeatCloud,
         pc = pc._replace(w=pc.w * uncertainty_sqrt_info(surf_tr))
         ec = ec._replace(w=ec.w * uncertainty_sqrt_info(corner_tr))
         pc, ec = _select_features(pc, ec, pose, state, cfg)
-        linearize_fn = _normal_equations(ec, pc, mc)
+        linearize_fn = factors.pose_normal_equations(ec, pc, mc.loss_mode,
+                                                     mc.huber_delta, gm_c=mc.gm_c)
 
         init_lin = None
         if deg_P is None and mc.eig_threshold > 0:

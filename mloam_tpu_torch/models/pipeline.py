@@ -47,14 +47,21 @@ A mapped sweep of ``FullPipeline`` adds the mapper's step
 iterations of two k-NN calls each against the surround map, once the map
 holds a keyframe.
 
-Not ported yet, each refused with ``NotImplementedError``: the tracker-less
-steady path (``skip_steady``) and the loop-closure pipeline. The
+``SlamPipeline`` adds loop closure behind the mapper (``loop/posegraph``):
+on the sweep after a keyframe, scan-context detection and a pose-seeded fine
+registration (six k-NN calls) and, with ``loop.use_global_registration``,
+the FFT correlation registration and a fine registration seeded by it (six
+more); the pose-graph optimization when a loop is verified.
+
+Not ported yet, refused with ``NotImplementedError``: the tracker-less
+steady path (``skip_steady``). The
 JAX package's opt-in vmapped frontend for uniform rigs (an environment
 switch it measured slower than the unrolled default) has no counterpart.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -63,6 +70,7 @@ import torch
 from mloam_tpu_torch import resolve_device
 from mloam_tpu_torch.config import MloamConfig
 from mloam_tpu_torch.core import rangeimage as RI
+from mloam_tpu_torch.core import rotations as rot
 from mloam_tpu_torch.core import se3
 from mloam_tpu_torch.core.rangeimage import RangeImage
 from mloam_tpu_torch.core.se3 import Pose
@@ -70,6 +78,7 @@ from mloam_tpu_torch.frontend import features as F
 from mloam_tpu_torch.frontend import segmentation as S
 from mloam_tpu_torch.frontend.features import (FeatCloud, FeatureFrame,
                                                downsample_featcloud)
+from mloam_tpu_torch.loop import posegraph as PGraph
 from mloam_tpu_torch.mapping import mapper as MP
 from mloam_tpu_torch.odometry import estimator as E
 from mloam_tpu_torch.odometry import initializer as I
@@ -586,8 +595,185 @@ class FullPipeline:
         return FullOutput(odom=out, map_pose=map_pose, map_cov=None, mapped=False)
 
 
+class SlamOutput(NamedTuple):
+    full: FullOutput
+    loop_found: bool
+    n_loops: int
+
+
+# the SLAM layer's host waits, by kind: the one-sweep-old flags behind their
+# events (keyframe inserted, loop verified) and the loop-correction read of a
+# verified loop (``SlamPipeline._accept_loop``)
+waits: collections.Counter = collections.Counter()
+
+
+class _Deferred:
+    """Device values copied to pinned host memory behind a CUDA event, read
+    a sweep later: ``get`` waits for that event only, not for the work queued
+    since (``bool`` of a CUDA tensor would wait for all of it). On the CPU
+    the values are kept as they are."""
+
+    def __init__(self, kind: str, *values: torch.Tensor):
+        self.kind = kind
+        self.event = None
+        if values[0].is_cuda:
+            self.host = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                         for v in values]
+            for h, v in zip(self.host, values):
+                h.copy_(v, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = list(values)
+
+    def get(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+            waits[self.kind] += 1
+        return [h.item() for h in self.host]
+
+
 class SlamPipeline:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SlamPipeline: loop closure and pose-graph optimization are not "
-            "ported yet (ROADMAP A12)")
+    """Complete system: odometry + keyframe mapping + loop closure.
+
+    Counterpart of ``mloam_tpu/models/pipeline.py:SlamPipeline`` (the
+    reference's three processes: odometry, mapping, loop closure, here one
+    host loop). Every ``loop.skip_interval``-th keyframe the mapper inserts
+    enters the loop graph; a verified loop is recorded and triggers the
+    pose-graph optimization. As in the reference the loop-corrected
+    keyframe trajectory is a separate output; the mapper's frame is not
+    rewritten.
+
+    The JAX package's one-sweep pipelining is kept: a mapped sweep's
+    keyframe flag is read at the next sweep (``_drain_kf``), which then
+    adds the keyframe and submits detection + verification without reading
+    anything; that result is read one sweep later (``_drain_verify``).
+    Each read waits on an event recorded right after the value's copy into
+    pinned host memory, never on the work queued since. A verified loop
+    reads the poses it corrects (``_accept_loop``, the temporal-consistency
+    gate) and runs the optimization. ``loop_kf_count`` mirrors the graph's
+    keyframe count on the host. Runs on ``device``: the GPU unless the
+    caller passes another; raises when that device is absent.
+    """
+
+    def __init__(self, cfg: MloamConfig, loop_capacity: int | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.full = FullPipeline(cfg, device=self.device)
+        self._loop_capacity = int(loop_capacity if loop_capacity is not None
+                                  else cfg.loop.capacity)
+        self.loop_state = PGraph.init_state(
+            self._loop_capacity,
+            cfg.rig.n_lidars * cfg.odometry.cap_frame_corner,
+            cfg.rig.n_lidars * cfg.odometry.cap_frame_surf,
+            cfg.loop, device=self.device)
+        self.kf_counter = 0
+        self.n_loops = 0
+        self.loop_kf_count = 0
+        # detections submitted so far (each runs try_close_loop once)
+        self.n_detections = 0
+        # detections awaiting temporal consistency:
+        # (query_idx, cand_idx, zq, zt, correction_t [3])
+        self._pending_loops: list = []
+        # in flight: (query_idx, _Deferred(found, cand), zq, zt)
+        self._pending_verify = None
+        # in flight: (_Deferred(inserted_kf), map pose, merged clouds)
+        self._pending_kf = None
+
+    def _loop_correction_t(self, q_idx: int, cand: int, zt) -> np.ndarray:
+        """Translation the loop edge would apply to the query keyframe:
+        (T_cand ∘ Z).t − T_query.t. Used by the temporal-consistency gate."""
+        ls = self.loop_state
+        corr = (rot.quat_rotate(ls.poses.q[cand], zt) + ls.poses.t[cand]
+                - ls.poses.t[q_idx])
+        waits["loop_correction_read"] += 1
+        return corr.cpu().numpy()
+
+    def _accept_loop(self, q_idx: int, cand: int, zq, zt) -> bool:
+        """Temporal-consistency gate: ``temporal_consistency_n`` detections
+        implying the same drift correction (within tol meters) before the
+        edges are recorded and the graph optimized. With n = 1 (the default,
+        the reference's pass-through check) every verified detection is
+        committed at once."""
+        lc = self.cfg.loop
+        corr = self._loop_correction_t(q_idx, cand, zt)
+        window = 2 * max(lc.skip_interval, 1) + 2
+        self._pending_loops = [p for p in self._pending_loops if q_idx - p[0] <= window]
+        self._pending_loops.append((q_idx, cand, zq, zt, corr))
+        consistent = [p for p in self._pending_loops
+                      if np.linalg.norm(p[4] - corr) < lc.temporal_consistency_tol]
+        if len(consistent) < max(lc.temporal_consistency_n, 1):
+            return False
+        for qi, cj, pzq, pzt, _ in consistent:
+            self.loop_state = PGraph.record_loop(self.loop_state, True, cj, qi, pzq, pzt)
+        self._pending_loops = []
+        self.loop_state = PGraph.optimize(self.loop_state, iters=lc.pgo_gn_iters,
+                                          dof4=lc.dof4)
+        self.n_loops += len(consistent)
+        return True
+
+    def corrected_trajectory(self):
+        """Loop-corrected keyframe trajectory (t [n, 3], q [n, 4], numpy)
+        after draining the in-flight keyframe and verification."""
+        self.flush()
+        n = self.loop_kf_count
+        return (self.loop_state.poses.t[:n].cpu().numpy(),
+                self.loop_state.poses.q[:n].cpu().numpy())
+
+    def _drain_verify(self) -> bool:
+        """Read the previous sweep's detection / verification and commit an
+        accepted loop."""
+        if self._pending_verify is None:
+            return False
+        q_idx, flags, zq, zt = self._pending_verify
+        self._pending_verify = None
+        found, cand = flags.get()
+        if found:
+            return self._accept_loop(q_idx, int(cand), zq, zt)
+        return False
+
+    def _drain_kf(self):
+        """Handle the previous mapped sweep's keyframe: if the mapper
+        inserted one and it is a loop-interval keyframe, add it to the loop
+        graph and submit detection + verification, read at the next
+        sweep."""
+        lc = self.cfg.loop
+        if self._pending_kf is None:
+            return
+        flag, map_pose, (corner_b, surf_b) = self._pending_kf
+        self._pending_kf = None
+        if not flag.get()[0]:
+            return
+        self.kf_counter += 1
+        if self.kf_counter % max(lc.skip_interval, 1) != 0:
+            return
+        self.loop_state = PGraph.add_keyframe(self.loop_state, map_pose, corner_b,
+                                              surf_b, lc)
+        if self.loop_kf_count < self._loop_capacity:
+            self.loop_kf_count += 1
+        q_idx = self.loop_kf_count - 1
+        if q_idx > lc.num_exclude_recent:
+            found, cand, zq, zt, _, _ = PGraph.try_close_loop(
+                self.loop_state, q_idx, lc, self.cfg,
+                use_global_reg=lc.use_global_registration)
+            self._pending_verify = (q_idx, _Deferred("verify_event", found, cand), zq, zt)
+            self.n_detections += 1
+
+    @torch.no_grad()
+    def process(self, imgs: list) -> SlamOutput:
+        out = self.full.process(imgs)
+        loop_found = self._drain_verify()
+        self._drain_kf()
+        if out.mapped and out.inserted_kf is not None:
+            self._pending_kf = (_Deferred("kf_flag_event", out.inserted_kf),
+                                out.map_pose, self.full.last_merged)
+        return SlamOutput(full=out, loop_found=loop_found, n_loops=self.n_loops)
+
+    @torch.no_grad()
+    def flush(self) -> bool:
+        """Drain the in-flight keyframe handling and loop verification (end
+        of sequence)."""
+        found = self._drain_verify()
+        self._drain_kf()
+        return self._drain_verify() or found

@@ -3,9 +3,9 @@
 Counterpart of ``mloam_tpu/models/platforms.py`` (the reference's yaml
 config set): SR (simulated jackal, 2x VLP-16), RHD (handheld, 2x VLP-16), RV
 Hercules (vehicle, 4x VLP-16), Oxford (2x HDL-32), KITTI (1x HDL-64), and the
-simulator fixture platform. The two operating points ``realtime_tuned`` and
-``indoor_degenerate`` are not ported: they need good-feature selection and
-the armed degeneracy gate (ROADMAP A10).
+simulator fixture platform, and the realtime operating point
+``realtime_tuned``. The indoor operating point ``indoor_degenerate`` is not
+ported: it needs the armed degeneracy gate (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -77,6 +77,23 @@ def kitti() -> MloamConfig:
     cfg = MloamConfig(rig=LidarRig(models=(model,), extrinsic_mode=0))
     return dataclasses.replace(
         cfg, segmenter=dataclasses.replace(cfg.segmenter, ground_rows=30))
+
+
+def realtime_tuned(cfg: MloamConfig) -> MloamConfig:
+    """The realtime operating point on top of any preset: one window
+    Gauss-Newton iteration, two tracker iterations, stride-0.6 good-feature
+    compaction in the window, a less-flat cap of 2560, 8 label-propagation
+    rounds and local-map precaps of 512 / 2560."""
+    return dataclasses.replace(
+        cfg,
+        odometry=dataclasses.replace(
+            cfg.odometry, gn_iters=1, gf_ratio=0.6, gf_method="stride",
+            gf_compact=True,
+            localmap_precap_corner=512, localmap_precap_surf=2560),
+        tracker=dataclasses.replace(cfg.tracker, gn_iters=2),
+        segmenter=dataclasses.replace(cfg.segmenter, label_iters=8),
+        features=dataclasses.replace(cfg.features, cap_less_flat=2560),
+    )
 
 
 def synthetic(n_lidars: int = 1, extrinsic_mode: int = 0) -> MloamConfig:

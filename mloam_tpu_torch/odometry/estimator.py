@@ -22,10 +22,18 @@ Design decisions:
     with a weak prior toward their running estimates, and the local map is
     formed by the reference lidar only.
 
-Not ported yet, each refused with ``NotImplementedError``: good-feature
-selection (``gf_ratio < 1``), the armed degeneracy gate
-(``eig_threshold > 0``), loss modes other than huber, and the autodiff
-linearization (``analytic=False``).
+  * Good-feature selection (``gf_ratio < 1``): ``gf_method="gd"`` zeroes the
+    weight of all but the top logdet-gain correspondences; with
+    ``gf_compact`` every query frame group's correspondences are then
+    compacted into a host-sized buffer of
+    ``min(n, max(ceil(n · gf_ratio · 1.25), 32))`` rows, so the Gauss-Newton
+    shapes shrink (any other method is the compaction alone, an even stride
+    over the matched rows). The k-NN runs before the selection, so its shapes
+    do not change.
+
+Not ported yet, each refused with ``NotImplementedError``: the armed
+degeneracy gate (``eig_threshold > 0``), loss modes other than huber, and
+the autodiff linearization (``analytic=False``).
 
 Feature stacks carry a lidar axis; all lidars' features are projected through
 their extrinsics into the pivot frame.
@@ -37,6 +45,8 @@ from typing import NamedTuple
 
 import torch
 
+import math
+
 from mloam_tpu_torch.config import MloamConfig
 from mloam_tpu_torch.core import rotations as rot
 from mloam_tpu_torch.core import se3
@@ -44,6 +54,7 @@ from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.frontend.features import FeatCloud
 from mloam_tpu_torch.ops import select, voxel
 from mloam_tpu_torch.solver import factors
+from mloam_tpu_torch.solver import feature_selection as FS
 from mloam_tpu_torch.solver.gauss_newton import gauss_newton
 from mloam_tpu_torch.solver.marginalization import QuadPrior, schur_marginalize_quad
 
@@ -241,10 +252,6 @@ def refuse_unported(cfg: MloamConfig, analytic: bool):
         raise NotImplementedError(
             "optimize_window(analytic=False): only the closed-form "
             "linearization is ported (ROADMAP A10)")
-    if oc.gf_ratio < 1.0:
-        raise NotImplementedError(
-            "odometry.gf_ratio < 1: good-feature selection is not ported yet "
-            "(ROADMAP A10)")
     if oc.eig_threshold > 0:
         raise NotImplementedError(
             "odometry.eig_threshold > 0: the armed degeneracy gate is not "
@@ -253,6 +260,30 @@ def refuse_unported(cfg: MloamConfig, analytic: bool):
         raise NotImplementedError(
             f"odometry.loss_mode={oc.loss_mode!r}: only 'huber' is ported in "
             "the window solve (ROADMAP A10)")
+
+
+def gf_caps(n: int, ratio: float) -> int:
+    """Rows a query group keeps under compaction: the selected share with
+    1.25x slack for uneven selection across groups, at least 32 (a host
+    integer: the Gauss-Newton shapes follow it)."""
+    return min(n, max(int(math.ceil(n * ratio * 1.25)), 32))
+
+
+def _compact_groups(corr, nq: int, n_per: int, cap: int):
+    """Compact each of the ``nq`` query groups' correspondences (``n_per``
+    rows each, kept where ``w > 0``) into ``cap`` rows, front-compacted by
+    rank (an even stride over the kept rows when more than ``cap`` are
+    kept); the emptied rows get zero weight."""
+    idx, om = select.compact_gather_indices(corr.w.reshape(nq, n_per) > 0, cap)
+
+    def g(leaf):
+        grp = leaf.reshape((nq, n_per) + leaf.shape[1:])
+        ix = idx.reshape(idx.shape + (1,) * (leaf.ndim - 1)).expand(
+            (nq, cap) + leaf.shape[1:])
+        return torch.gather(grp, 1, ix).reshape((nq * cap,) + leaf.shape[1:])
+
+    new = type(corr)(*(g(leaf) for leaf in corr))
+    return new._replace(w=(new.w.reshape(nq, cap) * om).reshape(nq * cap))
 
 
 def optimize_window(state: WindowState, cfg: MloamConfig,
@@ -314,8 +345,15 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
     n_c = state.corner.xyz.shape[2]
     n_s = state.surf.xyz.shape[2]
 
-    f_idx = torch.tensor([pivot + f for f, _ in q_ids], device=dev)
-    l_idx = torch.tensor([l for _, l in q_ids], device=dev)
+    # query group qi = (frame f, lidar l) in row-major order over
+    # (1..n_opt-1) x lidars; the lidars are a contiguous run. Built on the
+    # device (a tensor from a host list is a copy from pageable memory,
+    # which waits for the device).
+    nl = len(lidars)
+    assert lidars == tuple(range(lidars[0], lidars[0] + nl))
+    ar = torch.arange(nq, device=dev)
+    f_idx = pivot + 1 + torch.div(ar, nl, rounding_mode="floor")
+    l_idx = lidars[0] + torch.remainder(ar, nl)
 
     def chains(x):
         """[nq] poses: pivot-base (map) frame <- lidar-l frame of opt frame f,
@@ -359,11 +397,12 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
             d = torch.cat([d, de])
         return d
 
-    def point_poses(T: Pose):
-        """Per-point chain poses for the concatenated query sets."""
+    def point_poses(T: Pose, nc: int = n_c, ns: int = n_s):
+        """Per-point chain poses for the concatenated query sets (``nc`` /
+        ``ns`` rows per query group)."""
         return (
-            (T.q.repeat_interleave(n_c, 0), T.t.repeat_interleave(n_c, 0)),
-            (T.q.repeat_interleave(n_s, 0), T.t.repeat_interleave(n_s, 0)),
+            (T.q.repeat_interleave(nc, 0), T.t.repeat_interleave(nc, 0)),
+            (T.q.repeat_interleave(ns, 0), T.t.repeat_interleave(ns, 0)),
         )
 
     def ext_prior_rows(e: Pose, l: int) -> torch.Tensor:
@@ -423,6 +462,22 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
             qc_all, proj_c, c_map, c_mmask, oc.dist_sq_threshold)
         plane_corrs = factors.match_map_plane(
             qs_all, proj_s, s_map, s_mmask, oc.dist_sq_threshold)
+        if oc.gf_ratio < 1.0 and oc.gf_method == "gd":
+            # odometry-side good-feature selection: every matched
+            # correspondence scored by its logdet gain against the running
+            # information matrix (point Jacobians w.r.t. the chain pose)
+            keep_p, keep_e = FS.logdet_gain_select(
+                factors.plane_point_jacobian(sq, plane_corrs), plane_corrs.w,
+                factors.edge_point_jacobian(cq, edge_corrs), edge_corrs.w,
+                oc.gf_ratio, max_ratio=oc.gf_ratio)
+            edge_corrs = edge_corrs._replace(w=edge_corrs.w * keep_e.to(edge_corrs.w.dtype))
+            plane_corrs = plane_corrs._replace(w=plane_corrs.w * keep_p.to(plane_corrs.w.dtype))
+        if oc.gf_ratio < 1.0 and oc.gf_compact:
+            nc_cur, ns_cur = gf_caps(n_c, oc.gf_ratio), gf_caps(n_s, oc.gf_ratio)
+            edge_corrs = _compact_groups(edge_corrs, nq, n_c, nc_cur)
+            plane_corrs = _compact_groups(plane_corrs, nq, n_s, ns_cur)
+        else:
+            nc_cur, ns_cur = n_c, n_s
 
         def linearize_fn(xx):
             """Closed-form normal equations: per-point analytic Jacobians
@@ -430,7 +485,7 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
             blocks, then the chain rule through the pose graph."""
             ec, pc = edge_corrs, plane_corrs
             T, Ex = chains(xx)
-            (cq, ct), (sq, st_) = point_poses(T)
+            (cq, ct), (sq, st_) = point_poses(T, nc_cur, ns_cur)
             re = factors.edge_residual(rot.quat_rotate(cq, ec.p) + ct, ec)
             we = factors.robust_weights(
                 torch.sum(re * re, -1), ec.w, oc.loss_mode, oc.huber_delta,
@@ -438,12 +493,12 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
             rp = factors.plane_residual(rot.quat_rotate(sq, pc.p) + st_, pc)
             wp = factors.robust_weights(rp * rp, pc.w, oc.loss_mode,
                                         oc.huber_delta, gm_c=oc.gm_c)
-            Je = factors.edge_point_jacobian(cq, ec).reshape(nq, n_c, 3, 6)
-            Jp = factors.plane_point_jacobian(sq, pc).reshape(nq, n_s, 6)
-            we_g = we.reshape(nq, n_c)
-            re_g = re.reshape(nq, n_c, 3)
-            wp_g = wp.reshape(nq, n_s)
-            rp_g = rp.reshape(nq, n_s)
+            Je = factors.edge_point_jacobian(cq, ec).reshape(nq, nc_cur, 3, 6)
+            Jp = factors.plane_point_jacobian(sq, pc).reshape(nq, ns_cur, 6)
+            we_g = we.reshape(nq, nc_cur)
+            re_g = re.reshape(nq, nc_cur, 3)
+            wp_g = wp.reshape(nq, ns_cur)
+            rp_g = rp.reshape(nq, ns_cur)
             G = (torch.einsum("qnka,qn,qnkb->qab", Je, we_g, Je)
                  + torch.einsum("qna,qn,qnb->qab", Jp, wp_g, Jp))
             bq = (torch.einsum("qnka,qn,qnk->qa", Je, we_g, re_g)

@@ -28,11 +28,20 @@ _BIG = 1e30
 
 def pairwise_sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """[Nq,D]x[Nr,D] -> [Nq,Nr] squared distances, summed coordinate by
-    coordinate (no [Nq, Nr, D] temporary)."""
+    coordinate (no [Nq, Nr, D] temporary) in the order and with the fused
+    multiply-adds of the kernel's compiled code: d = fma(dz, dz, fma(dx, dx,
+    dy·dy)) for D = 3, so that the two round near-equal distances alike and
+    break the same ties.
+
+    ``torch.addcmul`` lowers to one fused multiply-add in PyTorch's CUDA
+    build; that is how it is compiled, not a documented contract
+    (``chip_smoke.py`` checks it on the card), and on the CPU the product
+    may be rounded apart. Where the roundings differ, two references whose
+    d² lie within an ulp may come out in either order."""
     d = None
-    for a in range(q.shape[1]):
+    for a in ([1, 0] + list(range(2, q.shape[1]))) if q.shape[1] > 1 else [0]:
         diff = q[:, a, None] - r[None, :, a]
-        d = diff * diff if d is None else d + diff * diff
+        d = diff * diff if d is None else torch.addcmul(d, diff, diff)
     return d
 
 

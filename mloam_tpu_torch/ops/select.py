@@ -45,16 +45,19 @@ def _even_stride(ar: torch.Tensor, num: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _compaction_plan(mask: torch.Tensor, cap: int):
-    """(dest [N] scatter slot per row with N as the sink, sel [cap] rows of
-    the compacted order to keep, out_mask [cap])."""
-    n = mask.shape[0]
+    """(dest [..., N] scatter slot per row with N as the sink, sel [..., cap]
+    rows of the compacted order to keep, out_mask [..., cap]) along the last
+    axis."""
+    n = mask.shape[-1]
     m = mask.to(torch.int64)
-    rank = torch.cumsum(m, 0) - 1
+    rank = torch.cumsum(m, -1) - 1
     dest = torch.where(mask, rank, n)  # slot n is a sink, sliced off below
-    num = torch.sum(m)
+    num = torch.sum(m, -1, keepdim=True)
     ar = torch.arange(cap, dtype=torch.int64, device=mask.device)
     sel = torch.where(num <= cap, ar, _even_stride(ar, num, cap))
     out_mask = ar < torch.clamp(num, max=cap)
+    if mask.ndim == 1:
+        sel, out_mask = sel.reshape(cap), out_mask.reshape(cap)
     return dest, sel, out_mask
 
 
@@ -78,18 +81,23 @@ def compact_stride(values: torch.Tensor, mask: torch.Tensor, cap: int,
 
 
 def compact_gather_indices(mask: torch.Tensor, cap: int):
-    """Gather plan for compaction: (src_idx [cap] int64, out_mask [cap]).
+    """Gather plan for compaction along the last axis of ``mask`` [..., N]:
+    (src_idx [..., cap] int64, out_mask [..., cap]).
 
-    Gathering any [N, ...] tensor with ``src_idx`` (and masking rows by
+    Gathering any [..., N, ...] tensor with ``src_idx`` (and masking rows by
     ``out_mask``) yields the first-``cap`` valid rows front-compacted by
     rank; when more than ``cap`` rows are valid, an even stride over the
     compacted order is taken (same semantics as :func:`compact_stride`).
+    Leading axes are independent groups (the JAX package vmaps the 1-D
+    form over them).
     """
-    n = mask.shape[0]
+    n = mask.shape[-1]
     dest, sel, out_mask = _compaction_plan(mask, cap)
-    src = torch.zeros((n + 1,), dtype=torch.int64, device=mask.device)
-    src[dest] = torch.arange(n, dtype=torch.int64, device=mask.device)
-    return src[:n][torch.clamp(sel, 0, n - 1)], out_mask
+    src = torch.zeros(mask.shape[:-1] + (n + 1,), dtype=torch.int64,
+                      device=mask.device)
+    ar = torch.arange(n, dtype=torch.int64, device=mask.device)
+    src.scatter_(-1, dest, ar.expand(mask.shape))
+    return torch.gather(src[..., :n], -1, torch.clamp(sel, 0, n - 1)), out_mask
 
 
 def compact_by_mask(values: torch.Tensor, mask: torch.Tensor, fill=0.0):

@@ -3,8 +3,8 @@ primitives along a smooth trajectory.
 
 The deterministic replay fixture: every end-to-end gate runs against
 sequences rendered here, with exact ground truth and exact per-point sweep
-timing. Counterpart of ``mloam_tpu/sim/world.py`` (companion objects, movers,
-range noise and the corridor / loop courses are not ported yet).
+timing. Counterpart of ``mloam_tpu/sim/world.py`` (companion objects, movers
+and the corridor course are not ported yet).
 
 The world is built from finite rectangles (ground, building walls) and
 vertical cylinders (poles, trunks) — structure that exercises both LOAM
@@ -13,9 +13,10 @@ azimuth column is ray-cast from the interpolated sensor pose at its firing
 time, and ranges are reported in the sensor frame at that time — exactly what
 a spinning LiDAR measures.
 
-Worlds and trajectories are drawn from a ``torch.Generator``; the same seed
-does not give the JAX package's world (different generators). To compare the
-two packages, carry the JAX ``World``/``Trajectory`` across as numpy
+Worlds, trajectories and range noise are drawn from a ``torch.Generator``;
+the same seed does not give the JAX package's world or noise (different
+generators: the same distributions, other draws). To compare the two
+packages, carry the JAX ``World``/``Trajectory`` across as numpy
 (``utils/convert``).
 """
 
@@ -155,12 +156,15 @@ def render_scan(
     pose_start: Pose,
     pose_end: Pose,
     model: LidarModel,
+    noise_std: float = 0.0,
+    generator: torch.Generator | None = None,
 ) -> RangeImage:
     """Render one distorted sweep.
 
     Column j fires at s = j/C into the sweep, from pose interp(start, end, s);
     the returned xyz is in the *sensor frame at firing time* (what the device
-    measures), gridded [R, C].
+    measures), gridded [R, C]. ``noise_std`` adds gaussian range noise drawn
+    from ``generator`` (on the CPU, then moved to the world's device).
     """
     r, c = model.n_rings, model.n_cols
     dev = world.rect_center.device
@@ -175,6 +179,9 @@ def render_scan(
     o_world = pose_cols.t[None, :, :].expand(r, c, 3)
     t_hit = raycast(world, o_world.reshape(-1, 3), d_world.reshape(-1, 3))
     t_hit = t_hit.reshape(r, c)
+    if noise_std > 0.0 and generator is not None:
+        noise = torch.randn((r, c), generator=generator, dtype=torch.float32)
+        t_hit = t_hit + noise_std * noise.to(dev)
     valid = (t_hit < model.max_range) & (t_hit > model.min_range)
     xyz = torch.where(valid[..., None], t_hit[..., None] * dirs_s, 0.0)
     return from_grid(xyz, valid)
@@ -216,6 +223,19 @@ def make_trajectory(generator: torch.Generator, speed_scale: float = 1.0,
                       yaw_rate, wobble)
 
 
+def make_loop_trajectory(radius: float = 7.0, period_s: float = 10.0,
+                         wobble: float = 0.0, device=None) -> Trajectory:
+    """Closed circular trajectory: one lap every ``period_s`` seconds, with
+    heading tangent to the circle, so the sensor revisits every point each
+    lap with matching yaw (the loop-closure course)."""
+    device = resolve_device(device)
+    om = 2.0 * math.pi / period_s
+    amp = torch.tensor([[radius, radius, 0.0]], device=device)
+    freq = torch.tensor([om], device=device)
+    phase = torch.tensor([[math.pi / 2.0, 0.0, 0.0]], device=device)
+    return Trajectory(amp, freq, phase, yaw_rate=float(om), wobble=wobble)
+
+
 def render_sequence(
     world: World,
     traj: Trajectory,
@@ -224,11 +244,14 @@ def render_sequence(
     extrinsic: Pose | None = None,
     t0: float = 0.0,
     device=None,
+    noise_std: float = 0.0,
+    noise_seed: int = 1234,
 ):
     """Render n_frames sweeps for one lidar mounted at ``extrinsic``
     (base <- lidar), on ``device`` (the GPU unless the caller passes
-    another). Returns (RangeImage stacked [F, ...], gt base poses Pose[F] at
-    sweep starts)."""
+    another). ``noise_std`` adds gaussian range noise, drawn frame after
+    frame from one generator seeded with ``noise_seed``. Returns (RangeImage
+    stacked [F, ...], gt base poses Pose[F] at sweep starts)."""
     device = resolve_device(device)
     world = World(*(x.to(device) for x in world))
     traj = traj._replace(amp=traj.amp.to(device), freq=traj.freq.to(device),
@@ -236,6 +259,7 @@ def render_sequence(
     if extrinsic is None:
         extrinsic = Pose.identity(device=device)
     dt = model.scan_period
+    noise_gen = torch.Generator().manual_seed(noise_seed) if noise_std > 0.0 else None
     imgs, poses = [], []
     with torch.no_grad():
         for i in range(n_frames):
@@ -244,7 +268,7 @@ def render_sequence(
             base1 = traj.pose(ts + dt)
             p0 = se3.compose(base0, extrinsic)
             p1 = se3.compose(base1, extrinsic)
-            imgs.append(render_scan(world, p0, p1, model))
+            imgs.append(render_scan(world, p0, p1, model, noise_std, noise_gen))
             poses.append(base0)
     stacked = RangeImage(*(torch.stack(x) for x in zip(*imgs)))
     gt = Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))

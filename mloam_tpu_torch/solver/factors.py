@@ -110,6 +110,33 @@ def robust_weights(r2: torch.Tensor, base_w: torch.Tensor, kind: str,
     return base_w * w
 
 
+def pose_normal_equations(ec: EdgeCorr, pc: PlaneCorr, loss_mode: str,
+                          delta: float, gm_c: float = 1.0):
+    """Closed-form single-pose normal equations of map edge and plane
+    factors (the analytic point Jacobians, batched): ``linearize_fn(T, mu)``
+    -> (H [6, 6], g [6], cost) for the Gauss-Newton solver, with IRLS robust
+    weights from the current residuals. The same H, g and cost as a
+    forward-mode Jacobian of the stacked residuals."""
+
+    def linearize_fn(T: Pose, mu=1.0):
+        re = edge_residual(se3.transform_points(T, ec.p), ec)
+        we = robust_weights(torch.sum(re * re, -1), ec.w, loss_mode, delta,
+                            gm_c=gm_c, gnc_mu=mu)
+        rp = plane_residual(se3.transform_points(T, pc.p), pc)
+        wp = robust_weights(rp * rp, pc.w, loss_mode, delta, gm_c=gm_c,
+                            gnc_mu=mu)
+        Je = edge_point_jacobian(T.q.expand(ec.p.shape[0], 4), ec)  # [N, 3, 6]
+        Jp = plane_point_jacobian(T.q.expand(pc.p.shape[0], 4), pc)  # [N, 6]
+        Jew = Je * we[:, None, None]
+        Jpw = Jp * wp[:, None]
+        H = Jew.reshape(-1, 6).T @ Je.reshape(-1, 6) + Jpw.T @ Jp
+        g = Jew.reshape(-1, 6).T @ re.reshape(-1) + Jpw.T @ rp
+        cost = 0.5 * (torch.sum(we * torch.sum(re * re, -1)) + torch.sum(wp * rp * rp))
+        return H, g, cost
+
+    return linearize_fn
+
+
 # ---------------------------------------------------------------------------
 # scan-to-scan correspondence construction
 # ---------------------------------------------------------------------------
@@ -275,5 +302,6 @@ def match_map_plane(
 def prior_residual(ext: Pose, ext_prior: Pose, pos_w: float, rot_w: float) -> torch.Tensor:
     """[6] weighted tangent error between extrinsic estimate and prior."""
     xi = se3.boxminus(ext, ext_prior)
-    w = torch.tensor([pos_w] * 3 + [rot_w] * 3, dtype=xi.dtype, device=xi.device)
+    w = torch.cat([torch.full((3,), pos_w, dtype=xi.dtype, device=xi.device),
+                   torch.full((3,), rot_w, dtype=xi.dtype, device=xi.device)])
     return w * xi

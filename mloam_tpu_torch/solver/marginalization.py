@@ -17,7 +17,9 @@ import torch
 
 
 def _flag(value: bool, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.bool, device=device)
+    """A device bool by a fill (a tensor from a host value is a copy from
+    pageable memory, which waits for the device)."""
+    return torch.full((), value, dtype=torch.bool, device=device)
 
 
 class MargPrior(NamedTuple):

@@ -19,10 +19,13 @@ from mloam_tpu_torch import config as C
 from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage
 from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.frontend.features import FeatCloud, FeatureFrame
+from mloam_tpu_torch.loop.posegraph import LoopGraphState
+from mloam_tpu_torch.loop.scancontext import ScanContextDB
 from mloam_tpu_torch.mapping.keyframes import KeyframeDB
 from mloam_tpu_torch.mapping.mapper import MapperState, SurroundMap
 from mloam_tpu_torch.odometry.estimator import WindowState
 from mloam_tpu_torch.odometry.initializer import MotionBuffer
+from mloam_tpu_torch.parallel.sharded_pgo import PoseGraphEdges
 from mloam_tpu_torch.sim.world import Trajectory, World
 from mloam_tpu_torch.solver.marginalization import QuadPrior
 
@@ -144,6 +147,37 @@ def mapper_state_from_numpy(st, device="cpu") -> MapperState:
         step=int(step),
         deg_dir=_t(deg_dir, device, torch.float32),
         deg_count=_t(deg_count, device, torch.int32))
+
+
+def scan_context_db_from_numpy(db, device="cpu") -> ScanContextDB:
+    desc, ring_key, valid, head = tuple(db)
+    return ScanContextDB(_t(desc, device), _t(ring_key, device),
+                         _t(valid, device, torch.bool), _t(head, device, torch.int32))
+
+
+def loop_state_from_numpy(st, device="cpu") -> LoopGraphState:
+    """The loop graph's whole state: keyframe poses (corrected and as
+    received), clouds, scan-context database and loop edges."""
+    (poses, odom_poses, corner, surf, sc_db, valid, count, loop_i, loop_j,
+     loop_zq, loop_zt, loop_valid, n_loops) = tuple(st)
+    return LoopGraphState(
+        poses=pose_from_numpy(poses, device),
+        odom_poses=pose_from_numpy(odom_poses, device),
+        corner=featcloud_from_numpy(corner, device),
+        surf=featcloud_from_numpy(surf, device),
+        sc_db=scan_context_db_from_numpy(sc_db, device),
+        valid=_t(valid, device, torch.bool), count=_t(count, device, torch.int32),
+        loop_i=_t(loop_i, device, torch.int32), loop_j=_t(loop_j, device, torch.int32),
+        loop_zq=_t(loop_zq, device), loop_zt=_t(loop_zt, device),
+        loop_valid=_t(loop_valid, device, torch.bool),
+        n_loops=_t(n_loops, device, torch.int32))
+
+
+def pose_graph_edges_from_numpy(e, device="cpu") -> PoseGraphEdges:
+    """Edge indices as int64 (they index the pose stack)."""
+    i, j, z_q, z_t, weight = tuple(e)
+    return PoseGraphEdges(_t(i, device, torch.int64), _t(j, device, torch.int64),
+                          _t(z_q, device), _t(z_t, device), _t(weight, device))
 
 
 def world_from_numpy(w, device="cpu") -> World:

@@ -1,6 +1,6 @@
 """Where one steady sweep spends its time on the GPU.
 
-    python -m mloam_tpu_torch.utils.profile_sweep [n_sweeps] [trace.json] [--mapping]
+    python -m mloam_tpu_torch.utils.profile_sweep [n_sweeps] [trace.json] [--mapping | --slam]
 
 Warms the single-LiDAR pipeline at the full width of the synthetic platform,
 then drives ``OdometryPipeline.process`` (with ``--mapping``:
@@ -9,12 +9,22 @@ second sweep is then mapped) on fresh sweeps: ``n_sweeps``
 untraced, whose wall time and stage times (the pipeline's own
 ``utils/timing`` spans) are printed, and ``n_sweeps`` under
 ``torch.profiler``, from which come the device-busy time and idle share, the
-device ops per sweep and the kernels and host ops that take most time. One
-JSON object per line. Needs a CUDA device.
+device ops per sweep and the kernels and host ops that take most time.
+
+With ``--slam``: ``SlamPipeline`` on the floor loop course (mapping every
+third sweep, keyframes every 0.5 m, 4 recent keyframes excluded, the
+correlation seed on), warmed until its keyframe sweeps submit detections;
+then every sweep is traced on its own until ``n_sweeps`` of each kind were:
+the keyframe sweep (the sweep after a keyframe, which adds it to the loop
+graph and submits a detection), the mapped sweep and the pass-through sweep;
+for each kind its device ops, device-busy ms, traced wall ms and idle share.
+
+One JSON object per line. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -24,8 +34,66 @@ import torch
 from mloam_tpu_torch import resolve_device
 from mloam_tpu_torch.core.rangeimage import RangeImage
 from mloam_tpu_torch.models import platforms, run_synthetic
-from mloam_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+from mloam_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline, SlamPipeline
 from mloam_tpu_torch.utils import timing
+
+
+def _device_kernels(prof) -> dict:
+    """{kernel name: [launches, device µs]} of a profiler run."""
+    kernels = {}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) is not None and "CUDA" in str(ev.device_type):
+            k = kernels.setdefault(ev.name, [0, 0.0])
+            k[0] += 1
+            k[1] += ev.device_time if hasattr(ev, "device_time") else ev.cuda_time
+    return kernels
+
+
+def _traced(fn):
+    """(result, profiler, traced wall ms) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof, (time.perf_counter() - t0) * 1e3
+
+
+def slam_main(n_sweeps: int = 3):
+    """Trace keyframe, mapped and pass-through sweeps of ``SlamPipeline``."""
+    dev = resolve_device(None)
+    cfg = platforms.synthetic(n_lidars=1)
+    cfg = dataclasses.replace(
+        cfg,
+        mapping=dataclasses.replace(cfg.mapping, keyframe_dist=0.5, skip_frames=3),
+        loop=dataclasses.replace(cfg.loop, skip_interval=1, num_exclude_recent=4,
+                                 loop_distance_threshold=10.0, capacity=64))
+    n_total = 40 + 9 * n_sweeps
+    seqs, _ = run_synthetic.render_rig(
+        cfg, n_total, seed=3, device=dev, world={"extent": 30.0, "n_walls": 20, "n_poles": 10},
+        loop={"radius": 6.0, "period_s": 10.0})
+    frames = iter(RangeImage(*(f[i] for f in seqs[0])) for i in range(n_total))
+    pipe = SlamPipeline(cfg, device=dev)
+    while pipe.n_detections == 0:
+        pipe.process([next(frames)])
+    seen = {"keyframe": [], "mapped": [], "pass": []}
+    for f in frames:
+        if min(len(v) for v in seen.values()) >= n_sweeps:
+            break
+        kf0, det0 = pipe.loop_kf_count, pipe.n_detections
+        out, prof, wall_ms = _traced(lambda: pipe.process([f]))
+        kind = ("keyframe" if pipe.n_detections != det0 or pipe.loop_kf_count != kf0
+                else "mapped" if out.full.mapped else "pass")
+        kernels = _device_kernels(prof)
+        busy_ms = sum(v[1] for v in kernels.values()) / 1e3
+        seen[kind].append({"device_ops": sum(v[0] for v in kernels.values()),
+                           "device_busy_ms": busy_ms, "wall_ms_traced": wall_ms,
+                           "device_idle_share": 1.0 - busy_ms / wall_ms,
+                           "detection_submitted": pipe.n_detections != det0})
+    print(json.dumps({"slam_sweeps": seen, "n_loops": pipe.n_loops,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False):
@@ -52,22 +120,13 @@ def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False
         "stage_ms": {k: [x * 1e3 for x in timing._registry[k]] for k in stages},
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def sweeps():
         for _ in range(n_sweeps):
             pipe.process([next(frames)])
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_sweeps
 
-    kernels = {}
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) is not None and "CUDA" in str(ev.device_type):
-            k = kernels.setdefault(ev.name, [0, 0.0])
-            k[0] += 1
-            k[1] += ev.device_time if hasattr(ev, "device_time") else ev.cuda_time
+    _, prof, wall_ms = _traced(sweeps)
+    wall_ms /= n_sweeps
+    kernels = _device_kernels(prof)
     total_us = sum(v[1] for v in kernels.values())
     launches = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
@@ -91,6 +150,10 @@ def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--mapping"]
-    main(int(args[0]) if args else 3, args[1] if len(args) > 1 else None,
-         mapping="--mapping" in sys.argv[1:])
+    flags = {"--mapping", "--slam"}
+    args = [a for a in sys.argv[1:] if a not in flags]
+    if "--slam" in sys.argv[1:]:
+        slam_main(int(args[0]) if args else 3)
+    else:
+        main(int(args[0]) if args else 3, args[1] if len(args) > 1 else None,
+             mapping="--mapping" in sys.argv[1:])

@@ -104,6 +104,19 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for():
         mloam_tpu_torch.resolve_device(None)
     assert mloam_tpu_torch.resolve_device("cpu").type == "cpu"
     assert P.OdometryPipeline(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.SlamPipeline(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.SlamPipeline(cfg, loop_capacity=4, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_synthetic.run(n_frames=2, verbose=False, slam=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        W.make_loop_trajectory()
+    small = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, max_keyframes=2, cap_map_corner=8, cap_map_surf=8))
+    slam = P.SlamPipeline(small, loop_capacity=4, device="cpu")
+    assert slam.device.type == "cpu" and slam.full.device.type == "cpu"
+    assert slam.loop_state.valid.device.type == "cpu" and slam.loop_state.valid.shape == (4,)
 
 
 def test_full_pipeline_defaults_to_the_gpu_and_raises_without_one():
@@ -126,10 +139,14 @@ def test_full_pipeline_defaults_to_the_gpu_and_raises_without_one():
 
 
 def test_the_mapping_modules_are_scanned_for_imports():
-    """The import scan covers the modules this slice adds."""
+    """The import scan covers the modules the mapping and loop-closure slices
+    add."""
     names = {str(p.relative_to(PKG)) for p in PORT_FILES if p.is_relative_to(PKG)}
     assert {"core/uncertainty.py", "core/cloud.py", "mapping/keyframes.py",
             "mapping/mapper.py", "solver/feature_selection.py"} <= names
+    assert {"loop/__init__.py", "loop/scancontext.py", "loop/registration.py",
+            "loop/global_registration.py", "loop/posegraph.py",
+            "parallel/__init__.py", "parallel/sharded_pgo.py"} <= names
 
 
 def test_world_is_deterministic_in_the_generator():
@@ -252,7 +269,6 @@ def _cfg(**odo):
 
 
 NARROWED = {
-    "gf_ratio": lambda: P.OdometryPipeline(_cfg(gf_ratio=0.6), device="cpu"),
     "eig_threshold": lambda: P.OdometryPipeline(_cfg(eig_threshold=175.0), device="cpu"),
     "window_loss_gm": lambda: P.OdometryPipeline(_cfg(loss_mode="gm"), device="cpu"),
     "tracker_loss_gnc": lambda: P.OdometryPipeline(
@@ -260,7 +276,6 @@ NARROWED = {
     "skip_steady": lambda: P.OdometryPipeline(dataclasses.replace(
         platforms.synthetic(), tracker=dataclasses.replace(
             platforms.synthetic().tracker, skip_steady=True)), device="cpu"),
-    "slam_pipeline": lambda: P.SlamPipeline(platforms.synthetic()),
     "analytic_false": lambda: E.optimize_window(
         E.init_window(platforms.synthetic(), 8, 8, device="cpu"),
         platforms.synthetic(), analytic=False),
@@ -276,8 +291,7 @@ def test_narrowed_feature_raises_not_implemented(name):
 
 
 def test_presets_not_ported_are_absent_not_silently_different():
-    for name in ("realtime_tuned", "indoor_degenerate"):
-        assert not hasattr(platforms, name)
+    assert not hasattr(platforms, "indoor_degenerate")
     cfg = platforms.synthetic()
     assert cfg.odometry.cap_frame_corner == 1024 and cfg.odometry.cap_frame_surf == 2048
     assert cfg.features.cap_less_flat == 4096 and cfg.rig.models[0].n_cols == 1800
@@ -285,12 +299,19 @@ def test_presets_not_ported_are_absent_not_silently_different():
     assert two.odometry.cap_frame_corner == 384 and two.odometry.localmap_precap_surf == 3840
 
 
-@pytest.mark.parametrize("name", ["simu_jackal", "handheld", "vehicle_hercules",
-                                  "oxford", "kitti"])
+PRESETS = {
+    **{name: (lambda pl, name=name: getattr(pl, name)())
+       for name in ("simu_jackal", "handheld", "vehicle_hercules", "oxford", "kitti")},
+    "realtime_tuned_synthetic_1": lambda pl: pl.realtime_tuned(pl.synthetic(1)),
+    "realtime_tuned_synthetic_2_0": lambda pl: pl.realtime_tuned(pl.synthetic(2, 0)),
+}
+
+
+@pytest.mark.parametrize("name", list(PRESETS))
 def test_ported_presets_equal_the_reference_presets(name):
     """Field by field, sensor models (the HDL-64 ring table) included."""
     from mloam_tpu.models import platforms as jplatforms
 
-    t, j = getattr(platforms, name)(), getattr(jplatforms, name)()
+    t, j = PRESETS[name](platforms), PRESETS[name](jplatforms)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert type(t.rig.models[0]).__module__.startswith("mloam_tpu_torch")
