@@ -15,7 +15,10 @@ kept so a reader finds the counterpart:
                   de-skew + window solve over all lidars + marginalization
                   (``ext_mode`` 0, window full); the JAX package's
                   ``_fused_step_impl`` (one lidar) and ``_fused_multi_impl``
-                  (unrolled per-lidar frontends) in one.
+                  (unrolled per-lidar frontends) in one. With
+                  ``tracker.skip_steady`` the tracker is skipped there: the
+                  constant-velocity motion seeds the window and de-skews,
+                  and the next motion is read back off the refined window.
 
 The calibration lifecycle (ESTIMATE_EXTRINSIC, a per-rig setting):
 
@@ -40,7 +43,8 @@ Each sweep's three stages run under the stage timers ``odom_mea_pre`` /
 
 Per sweep the hand-written kernels run once per lidar for label propagation
 (``ops/hopper_labels``) and for k-NN (``ops/hopper_knn``) twice per tracker
-(one tracker, or one per lidar in mode 2) and twice in the window solve.
+(one tracker, or one per lidar in mode 2; none on a steady sweep with
+``skip_steady``) and twice in the window solve.
 
 A mapped sweep of ``FullPipeline`` adds the mapper's step
 (``mapping/mapper.mapper_step``, under the timer ``map_step``): two outer
@@ -53,9 +57,7 @@ registration (six k-NN calls) and, with ``loop.use_global_registration``,
 the FFT correlation registration and a fine registration seeded by it (six
 more); the pose-graph optimization when a loop is verified.
 
-Not ported yet, refused with ``NotImplementedError``: the tracker-less
-steady path (``skip_steady``). The
-JAX package's opt-in vmapped frontend for uniform rigs (an environment
+The JAX package's opt-in vmapped frontend for uniform rigs (an environment
 switch it measured slower than the unrolled default) has no counterpart.
 """
 
@@ -132,17 +134,6 @@ class OdometryPipeline:
 
     def __init__(self, cfg: MloamConfig, device=None):
         self.device = resolve_device(device)
-        # the window solve refuses what it has not ported; fail at
-        # construction, not at the first warm sweep
-        E.refuse_unported(cfg, analytic=True)
-        if cfg.tracker.skip_steady:
-            raise NotImplementedError(
-                "tracker.skip_steady=True: the tracker-less steady path is "
-                "not ported yet (ROADMAP A10, with the tuned operating points)")
-        if cfg.tracker.loss_mode != "huber":
-            raise NotImplementedError(
-                f"tracker.loss_mode={cfg.tracker.loss_mode!r}: only 'huber' "
-                "is ported (ROADMAP A10)")
         self.cfg = cfg
         self._rays = [RI.unit_rays(m, device=self.device)
                       for m in cfg.rig.models]
@@ -285,18 +276,34 @@ class OdometryPipeline:
         window full): every lidar's frontend, the reference-lidar tracker,
         de-skew of every lidar through its extrinsic, window solve over all
         lidars' correspondences and marginalization, each stage under its
-        timer."""
+        timer.
+
+        With ``tracker.skip_steady`` there is no tracker: the constant-
+        velocity motion ``motion0`` seeds the window and de-skews every
+        lidar, the window's scan-to-local-map solve refines it, and the next
+        motion is the refined inter-sweep motion read back off the window,
+        inverse(poses[-2]) ∘ poses[-1]; no tracker spectrum is returned."""
         L = self.cfg.rig.n_lidars
         with timing.timer("odom_mea_pre"):
             ffs, corners, surfs, outliers = self._frontends(imgs)
+        skip = self.cfg.tracker.skip_steady
         with timing.timer("odom_tracker"):
-            res, desk = self._track(prev_feat0, ffs[0], motion0)
+            if skip:
+                motion, trk_eig = motion0, None
+                desk = (FeatureFrame(*(TR.deskew_features(motion0, f) for f in ffs[0]))
+                        if self.cfg.tracker.deskew else ffs[0])
+            else:
+                res, desk = self._track(prev_feat0, ffs[0], motion0)
+                motion, trk_eig = res.pose, res.eig
         with timing.timer("odom_solver"):
             window, solve, pred, refined = self._window_step_impl(
-                window, world_pose, res.pose, (res.pose,) * L, corners, surfs,
+                window, world_pose, motion, (motion,) * L, corners, surfs,
                 mode2=False, calibrate_ext=False, lidars=tuple(range(L)))
-        return (window, refined, res.pose, desk, pred, solve, tuple(outliers),
-                res.eig)
+        if skip:
+            motion = se3.compose(
+                se3.inverse(Pose(window.poses.q[-2], window.poses.t[-2])), refined)
+        return (window, refined, motion, desk, pred, solve, tuple(outliers),
+                trk_eig)
 
     def _steady(self, imgs) -> tuple:
         """One steady sweep: the fused step, and the host state it moves."""

@@ -3,9 +3,9 @@
 Counterpart of ``mloam_tpu/models/platforms.py`` (the reference's yaml
 config set): SR (simulated jackal, 2x VLP-16), RHD (handheld, 2x VLP-16), RV
 Hercules (vehicle, 4x VLP-16), Oxford (2x HDL-32), KITTI (1x HDL-64), and the
-simulator fixture platform, and the realtime operating point
-``realtime_tuned``. The indoor operating point ``indoor_degenerate`` is not
-ported: it needs the armed degeneracy gate (ROADMAP A10).
+simulator fixture platform, and the operating points applied on top of any
+preset: ``realtime_tuned`` and the indoor / degenerate-geometry
+``indoor_degenerate``.
 """
 
 from __future__ import annotations
@@ -100,3 +100,18 @@ def synthetic(n_lidars: int = 1, extrinsic_mode: int = 0) -> MloamConfig:
     """The simulator fixture platform."""
     return _rig_budget(MloamConfig(rig=LidarRig(models=(SIM16,) * n_lidars,
                                                 extrinsic_mode=extrinsic_mode)))
+
+
+def indoor_degenerate(cfg: MloamConfig) -> MloamConfig:
+    """The indoor / degenerate-geometry operating point: arm the solution
+    remap of the window and of the mapper at 175, with the persistence,
+    purity and support gates, canonical-axis snapping and projector-consistent
+    marginalization the config carries. The default ships it disarmed;
+    arming it is a choice of environment. 175 sits between the corridor
+    window's weakest eigenvalues (113-156 at 0.01 m range noise) and those of
+    rich scenes at that noise (>= 232), as the JAX package calibrated it."""
+    return dataclasses.replace(
+        cfg,
+        odometry=dataclasses.replace(cfg.odometry, eig_threshold=175.0),
+        mapping=dataclasses.replace(cfg.mapping, eig_threshold=175.0),
+    )

@@ -31,9 +31,22 @@ Design decisions:
     over the matched rows). The k-NN runs before the selection, so its shapes
     do not change.
 
-Not ported yet, each refused with ``NotImplementedError``: the armed
-degeneracy gate (``eig_threshold > 0``), loss modes other than huber, and
-the autodiff linearization (``analytic=False``).
+  * Degeneracy (``eig_threshold > 0``, the ``indoor_degenerate`` operating
+    point): the window is linearized once at its start and the armed gate
+    reads the measurement Hessian there — the shared weakest direction, a
+    leaky count of consecutive consistent sub-threshold sweeps, purity of the
+    direction, the support count along it — and hands the solve a projector
+    that is the identity unless the gate engages. The gate is tensors only:
+    it adds no host read. ``marginalize_pivot`` projects the measurement part
+    of the prior with the same projector.
+
+  * Robust losses: huber, ``gm`` (Geman-McClure) and ``gnc_gm`` (its
+    graduated surrogate, ``max(gn_iters, 8)`` iterations under
+    ``robust.gnc_mu_schedule``).
+
+  * ``analytic=False`` differentiates the stacked residuals by forward-mode
+    AD instead of the closed-form normal equations (the reference oracle of
+    the analytic path).
 
 Feature stacks carry a lidar axis; all lidars' features are projected through
 their extrinsics into the pivot frame.
@@ -43,9 +56,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import torch
-
 import math
+
+import torch
 
 from mloam_tpu_torch.config import MloamConfig
 from mloam_tpu_torch.core import rotations as rot
@@ -53,8 +66,9 @@ from mloam_tpu_torch.core import se3
 from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.frontend.features import FeatCloud
 from mloam_tpu_torch.ops import select, voxel
-from mloam_tpu_torch.solver import factors
+from mloam_tpu_torch.solver import degeneracy, factors, robust
 from mloam_tpu_torch.solver import feature_selection as FS
+from mloam_tpu_torch.solver.gauss_newton import _linearize as GN_linearize
 from mloam_tpu_torch.solver.gauss_newton import gauss_newton
 from mloam_tpu_torch.solver.marginalization import QuadPrior, schur_marginalize_quad
 
@@ -75,8 +89,9 @@ class WindowState(NamedTuple):
     prior: QuadPrior
     prior_poses: Pose      # [S] linearization poses for the prior
     prior_ext: Pose        # [L] linearization extrinsics for the prior
-    # degeneracy persistence state: carried for layout parity with the JAX
-    # package; only the (unported) armed gate updates it
+    # degeneracy persistence state of the armed gate: the weak direction of
+    # the last sub-threshold solve and the leaky count of consistent
+    # sub-threshold sweeps (the remap engages at eig_persist_k)
     deg_dir: torch.Tensor   # [6]
     deg_count: torch.Tensor  # scalar int32
 
@@ -241,25 +256,12 @@ class WindowSolveResult(NamedTuple):
     eig_shared: torch.Tensor | None = None
     # [6] its weakest eigvector (candidate frozen direction, up to sign)
     weak_dir: torch.Tensor | None = None
-    # the projector of the armed persistence gate (None: gate not ported)
+    # [n, 6, 6] the projector the armed gate handed the solve (the identity
+    # while it keeps the remap disengaged); None when the gate is disarmed
     remap_P: torch.Tensor | None = None
+    # effective support count (Σa)²/Σa² of the curvature along the weak
+    # direction, a_i = w_i (J_i·v0)² (armed gate only)
     support_neff: torch.Tensor | None = None
-
-
-def refuse_unported(cfg: MloamConfig, analytic: bool):
-    oc = cfg.odometry
-    if not analytic:
-        raise NotImplementedError(
-            "optimize_window(analytic=False): only the closed-form "
-            "linearization is ported (ROADMAP A10)")
-    if oc.eig_threshold > 0:
-        raise NotImplementedError(
-            "odometry.eig_threshold > 0: the armed degeneracy gate is not "
-            "ported yet (ROADMAP A10)")
-    if oc.loss_mode != "huber":
-        raise NotImplementedError(
-            f"odometry.loss_mode={oc.loss_mode!r}: only 'huber' is ported in "
-            "the window solve (ROADMAP A10)")
 
 
 def gf_caps(n: int, ratio: float) -> int:
@@ -295,7 +297,8 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
 
     The normal equations are assembled from closed-form point Jacobians
     chained through the pose graph (per-chain 6x6 Gram blocks, then the chain
-    rule by adjoints). ``lidars`` restricts which lidars contribute
+    rule by adjoints); ``analytic=False`` takes the forward-mode Jacobian of
+    the stacked residuals instead. ``lidars`` restricts which lidars contribute
     correspondences. ``calibrate_ext``: ESTIMATE_EXTRINSIC==1, the extrinsic
     blocks of lidars 1..L-1 join the tangent with a weak prior toward the
     prior's linearization extrinsics, and the map is formed by lidar 0 only.
@@ -303,11 +306,14 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
     As in the JAX package the solve passes ``remap_threshold=0.0`` (not
     ``None``) while the degeneracy gate is disarmed, so the projector and the
     block spectra are built on every solve; a direction freezes only if an
-    f32 eigenvalue of the mean block comes out negative.
+    f32 eigenvalue of the mean block comes out negative. Armed
+    (``eig_threshold > 0``, analytic), the first outer iteration runs the
+    persistence gate on the measurement Hessian at the window's start and
+    every solve applies the projector it built.
 
-    Returns (state with updated poses and extrinsics, WindowSolveResult).
+    Returns (state with updated poses, extrinsics and gate state,
+    WindowSolveResult).
     """
-    refuse_unported(cfg, analytic)
     oc = cfg.odometry
     s = oc.window_size + 1
     O = oc.opt_window_size
@@ -453,6 +459,14 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
     x = (state.poses, state.ext)
     result = None
     edge_corrs = plane_corrs = None
+    # the armed gate's state: set on the first outer iteration, carried out
+    # through the WindowState
+    deg_P = spectra = support_neff = None
+    deg_dir, deg_count = state.deg_dir, state.deg_count
+    gnc = oc.loss_mode == "gnc_gm"
+    # GNC needs iterations to anneal: the gnc mode gets a full budget
+    eff_iters = max(oc.gn_iters, 8) if gnc else oc.gn_iters
+    mu_sched = robust.gnc_mu_schedule(oc.gnc_mu_init, eff_iters + 1) if gnc else None
 
     for _ in range(oc.outer_iters):
         (cq, ct), (sq, st_) = point_poses(chains(x)[0])
@@ -479,20 +493,36 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
         else:
             nc_cur, ns_cur = n_c, n_s
 
-        def linearize_fn(xx):
+        def point_rows(T: Pose, mu):
+            """Edge residuals [n, 3] and plane residuals [n] of the chain
+            poses ``T``, with their IRLS weights under convexity ``mu``."""
+            ec, pc = edge_corrs, plane_corrs
+            (cq, ct), (sq, st_) = point_poses(T, nc_cur, ns_cur)
+            re = factors.edge_residual(rot.quat_rotate(cq, ec.p) + ct, ec)
+            we = factors.robust_weights(
+                torch.sum(re * re, -1), ec.w, oc.loss_mode, oc.huber_delta,
+                gm_c=oc.gm_c, gnc_mu=mu)
+            rp = factors.plane_residual(rot.quat_rotate(sq, pc.p) + st_, pc)
+            wp = factors.robust_weights(rp * rp, pc.w, oc.loss_mode,
+                                        oc.huber_delta, gm_c=oc.gm_c, gnc_mu=mu)
+            return (cq, re, we), (sq, rp, wp)
+
+        def residual_fn(xx, mu=1.0):
+            """The stacked rows for ``analytic=False``: point residuals and
+            the small rows, with their weights."""
+            (_, re, we), (_, rp, wp) = point_rows(chains(xx)[0], mu)
+            rsm = small_residual(xx)
+            return (torch.cat([re.reshape(-1), rp, rsm]),
+                    torch.cat([torch.repeat_interleave(we, 3), wp,
+                               torch.ones_like(rsm)]))
+
+        def linearize_fn(xx, mu=1.0):
             """Closed-form normal equations: per-point analytic Jacobians
             w.r.t. each chain pose's right tangent, per-chain 6x6 Gram
             blocks, then the chain rule through the pose graph."""
             ec, pc = edge_corrs, plane_corrs
             T, Ex = chains(xx)
-            (cq, ct), (sq, st_) = point_poses(T, nc_cur, ns_cur)
-            re = factors.edge_residual(rot.quat_rotate(cq, ec.p) + ct, ec)
-            we = factors.robust_weights(
-                torch.sum(re * re, -1), ec.w, oc.loss_mode, oc.huber_delta,
-                gm_c=oc.gm_c)
-            rp = factors.plane_residual(rot.quat_rotate(sq, pc.p) + st_, pc)
-            wp = factors.robust_weights(rp * rp, pc.w, oc.loss_mode,
-                                        oc.huber_delta, gm_c=oc.gm_c)
+            (cq, re, we), (sq, rp, wp) = point_rows(T, mu)
             Je = factors.edge_point_jacobian(cq, ec).reshape(nq, nc_cur, 3, 6)
             Jp = factors.plane_point_jacobian(sq, pc).reshape(nq, ns_cur, 6)
             we_g = we.reshape(nq, nc_cur)
@@ -526,18 +556,67 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
                           + torch.sum(wp * rp * rp) + torch.sum(rsm * rsm))
             return H, g, cost
 
+        if deg_P is None and analytic and oc.eig_threshold > 0:
+            # the armed gate: linearize once here so the gate reads the
+            # measurement Hessian, and hand the solver the linearization
+            # and the projector (the identity unless the gate engages)
+            init_lin = GN_linearize(
+                None, retract, x, dim, quad_prior=(prior_delta, state.prior),
+                linearize_fn=linearize_fn,
+                mu=mu_sched(0) if mu_sched is not None else None)
+            vals, vecs, vals_sh, vecs_sh = degeneracy.block_spectra(init_lin[3])
+            v0 = vecs_sh[:, 0]
+            below = vals_sh[0] < oc.eig_threshold
+            consistent = torch.abs(torch.dot(v0, deg_dir)) > oc.eig_persist_cos
+            # leaky persistence credit: +1 per consistent sub-threshold
+            # sweep, 1 on a new direction, -3 (floored at 0) on a clear one
+            deg_count = torch.where(
+                below, torch.where(consistent, deg_count + 1, 1),
+                torch.clamp(deg_count - 3, min=0)).to(torch.int32)
+            deg_dir = torch.where(below, v0, deg_dir)
+            engage = below & (deg_count >= oc.eig_persist_k)
+            if oc.eig_snap_purity is not None:
+                # freeze only a crisply canonical starved axis
+                engage = engage & (torch.max(torch.abs(v0)) >= oc.eig_snap_purity)
+            # support concentration: each correspondence's curvature along
+            # v0, a_i = w_i (J_i·v0)², and n_eff = (Σa)²/Σa²
+            (cq0, _), (sq0, _) = point_poses(chains(x)[0], nc_cur, ns_cur)
+            a_p = plane_corrs.w * torch.square(
+                factors.plane_point_jacobian(sq0, plane_corrs) @ v0)
+            a_e = edge_corrs.w * torch.sum(torch.square(
+                factors.edge_point_jacobian(cq0, edge_corrs) @ v0), -1)
+            a = torch.cat([a_p, a_e])
+            support_neff = torch.square(torch.sum(a)) / torch.clamp(
+                torch.sum(a * a), min=1e-20)
+            if oc.eig_support_neff is not None:
+                engage = engage & (support_neff < oc.eig_support_neff)
+            P_eng = degeneracy.projector_from_spectra(
+                vals, vecs, vals_sh, vecs_sh, oc.eig_threshold,
+                oc.remap_max_freeze, shared=oc.remap_shared,
+                snap_purity=oc.eig_snap_purity)
+            eye = torch.eye(6, dtype=P_eng.dtype, device=dev).expand(P_eng.shape)
+            deg_P = torch.where(engage, P_eng, eye)
+            spectra = (vals, vals_sh, v0)
+        else:
+            # later outer iterations keep the projector but linearize anew:
+            # the solver reads the spectra off that linearization itself
+            init_lin = spectra = None
         st = gauss_newton(
-            None,
+            None if analytic else residual_fn,
             x,
             retract,
             dim=dim,
-            iters=oc.gn_iters,
-            remap_threshold=oc.eig_threshold,
+            iters=eff_iters,
+            remap_threshold=oc.eig_threshold if deg_P is None else None,
             remap_max_freeze=oc.remap_max_freeze,
             remap_shared=oc.remap_shared,
             remap_snap_purity=oc.eig_snap_purity,
+            remap_P=deg_P,
+            remap_spectra=spectra,
+            init_linearization=init_lin,
             quad_prior=(prior_delta, state.prior),
-            linearize_fn=linearize_fn,
+            linearize_fn=linearize_fn if analytic else None,
+            mu_schedule=mu_sched,
         )
         x = st.x
         result = st
@@ -568,10 +647,11 @@ def optimize_window(state: WindowState, cfg: MloamConfig,
         frozen=result.frozen,
         eig_shared=result.eig_shared,
         weak_dir=result.weak_dir,
-        remap_P=None,
-        support_neff=None,
+        remap_P=deg_P,
+        support_neff=support_neff,
     )
-    return state._replace(poses=poses, ext=ext), solve
+    return state._replace(poses=poses, ext=ext, deg_dir=deg_dir,
+                          deg_count=deg_count), solve
 
 
 def marginalize_pivot(state: WindowState, solve: WindowSolveResult,
@@ -579,12 +659,16 @@ def marginalize_pivot(state: WindowState, solve: WindowSolveResult,
     """Schur-eliminate the pivot block of the final (H, g) into a prior over
     the remaining opt poses (+ extrinsics in calibration mode); re-linearize
     at the current estimates. The new frame pushed next step enters with a
-    zero prior block."""
-    if cfg.odometry.eig_threshold > 0:
-        raise NotImplementedError(
-            "odometry.eig_threshold > 0: degeneracy-consistent "
-            "marginalization is not ported yet (ROADMAP A10)")
-    O = cfg.odometry.opt_window_size
+    zero prior block.
+
+    Armed (``eig_threshold > 0`` with ``remap_project_prior``, outside
+    calibration): degeneracy-consistent marginalization. The measurement part
+    of (H, g) is projected with the projector the solve applied
+    (``solve.remap_P``, or ``block_projector`` of it when the gate did not
+    build one) and the inherited prior part passes through untouched, so the
+    prior stores only the measurements the solve accepted."""
+    oc = cfg.odometry
+    O = oc.opt_window_size
     dim = prior_dim(cfg, calibrate_ext)
     dev = solve.H.device
     # marginalize only the factor blocks + old prior: the per-solve gauge
@@ -593,6 +677,22 @@ def marginalize_pivot(state: WindowState, solve: WindowSolveResult,
     # WindowSolveResult.H_anchor)
     H_in = solve.H - solve.H_anchor
     g_in = solve.g - solve.g_anchor
+    if (oc.eig_threshold > 0 and oc.remap_project_prior
+            and solve.H_prior is not None and not calibrate_ext):
+        Hm = H_in - solve.H_prior
+        gm = g_in - solve.g_prior
+        P = solve.remap_P
+        if P is None:
+            P, _ = degeneracy.block_projector(Hm, oc.eig_threshold,
+                                              oc.remap_max_freeze,
+                                              shared=oc.remap_shared,
+                                              snap_purity=oc.eig_snap_purity)
+        n = P.shape[0]
+        Hm = torch.einsum("aij,ajbl,bkl->aibk", P, Hm.reshape(n, 6, n, 6),
+                          P).reshape(n * 6, n * 6)
+        gm = torch.einsum("aij,aj->ai", P, gm.reshape(n, 6)).reshape(-1)
+        H_in = Hm + solve.H_prior
+        g_in = gm + solve.g_prior
     small = schur_marginalize_quad(H_in, g_in, n_drop=6)
     # retained layout after the slide: [poses 0..O-1 | ext...], new pose
     # block O is zero. Old retained layout: [poses 1..O | ext...]: the

@@ -11,8 +11,9 @@ order), reduced with segment heads, and compacted into a fixed-capacity
 output with a validity mask. Invalid points sort to the tail via a
 valid-first sort key.
 
-On a CUDA device the segment sums are ``index_add_`` with atomics, so a
-centroid's last bits can change from run to run.
+The segment sums are ``segsum.index_sum``: fixed-point integer adds, so a
+centroid has the same bits on every run and on any device, whatever order
+the device adds its members in.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from mloam_tpu_torch.ops.segsum import index_sum
 
 _SENTINEL = 2 ** 30
 
@@ -101,21 +104,21 @@ def segment_mean(values: torch.Tensor, red: VoxelReduction,
     the first num_voxels rows).
     """
     n = values.shape[0]
-    v = values[red.order]
+    v = values[red.order].reshape(n, -1)
     w = (torch.ones((n,), dtype=values.dtype, device=values.device)
          if weights is None else weights[red.order])
     w = torch.where(red.sorted_valid, w, 0.0)
-    wv = v * w.reshape(_tail(values))
-    sums = torch.zeros_like(values).index_add_(0, red.seg_id, wv)
-    wsum = torch.zeros((n,), dtype=values.dtype,
-                       device=values.device).index_add_(0, red.seg_id, w)
-    return sums / torch.clamp(wsum, min=1e-12).reshape(_tail(values))
+    wv = torch.where(red.sorted_valid[:, None], v * w[:, None], 0.0)
+    # the weighted payload and the weights in one order-independent sum
+    sums = index_sum(torch.cat([wv, w[:, None]], 1), red.seg_id, n)
+    mean = sums[:, :-1] / torch.clamp(sums[:, -1:], min=1e-12)
+    return mean.reshape(values.shape)
 
 
 def segment_sum(values: torch.Tensor, red: VoxelReduction) -> torch.Tensor:
     v = values[red.order]
     v = torch.where(red.sorted_valid.reshape(_tail(values)), v, 0.0)
-    return torch.zeros_like(values).index_add_(0, red.seg_id, v)
+    return index_sum(v, red.seg_id, values.shape[0])
 
 
 def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
@@ -195,14 +198,16 @@ def voxel_downsample_with_cov(
     n = xyz.shape[0]
 
     ws = torch.where(red.sorted_valid, w[red.order], 0.0)
-    wsum = torch.zeros((n,), dtype=xyz.dtype, device=xyz.device) \
-        .index_add_(0, red.seg_id, ws)
-    wsum_safe = torch.clamp(wsum, min=1e-12)
-    out_xyz = torch.zeros_like(xyz).index_add_(
-        0, red.seg_id, ws[:, None] * xyz[red.order]) / wsum_safe[:, None]
-    out_cov = torch.zeros_like(cov).index_add_(
-        0, red.seg_id, (ws * ws)[:, None, None] * cov[red.order]) \
-        / (wsum_safe * wsum_safe)[:, None, None]
+    ok_s = red.sorted_valid[:, None]
+    # Σw, Σw·x and Σw²·Σ in one order-independent sum
+    sums = index_sum(torch.cat([
+        ws[:, None],
+        torch.where(ok_s, ws[:, None] * xyz[red.order], 0.0),
+        torch.where(ok_s, (ws * ws)[:, None] * cov[red.order].reshape(n, 9), 0.0),
+    ], 1), red.seg_id, n)
+    wsum_safe = torch.clamp(sums[:, 0], min=1e-12)
+    out_xyz = sums[:, 1:4] / wsum_safe[:, None]
+    out_cov = sums[:, 4:].reshape(n, 3, 3) / (wsum_safe * wsum_safe)[:, None, None]
     out_payload = None
     if payload is not None:
         # the heaviest member's payload: a segment max of the weights, then a

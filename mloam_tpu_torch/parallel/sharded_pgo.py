@@ -12,6 +12,10 @@ keyframe poses). Two solvers share the per-edge linearization:
     H v = Σ_e Jᵉᵀ (Jᵉ v|_e) + damping + anchor, solved by conjugate
     gradients with a block-Jacobi (6×6 per pose) preconditioner.
 
+Every scatter-add of per-edge terms onto the poses is ``ops/segsum.index_sum``
+(fixed-point integer adds): the same bits on every run, where float atomics
+would change the last bits of H, g and each conjugate-gradient product.
+
 The per-edge Jacobians [E, R, 12] come from one forward-mode pass over a
 12-dim perturbation shared by all edges (edge e's residual depends on its
 own two poses only, so the shared perturbation yields every edge's own
@@ -31,6 +35,7 @@ import torch
 from mloam_tpu_torch.core import rotations as rot
 from mloam_tpu_torch.core import se3
 from mloam_tpu_torch.core.se3 import Pose
+from mloam_tpu_torch.ops.segsum import index_sum
 
 
 class PoseGraphEdges(NamedTuple):
@@ -102,18 +107,28 @@ def _linearize_edges(poses: Pose, edges: PoseGraphEdges, dof4: bool = False):
     dim = n * 6
     r, J = _linearize_sparse(poses, edges, dof4)
     Ji, Jj = J[:, :, :6], J[:, :, 6:]
-    bi, bj = _blocks(edges.i), _blocks(edges.j)
-    H = torch.zeros((dim, dim), dtype=r.dtype, device=r.device)
+    # the four block sets, keyed by their (row pose, column pose) pair, are
+    # summed per pair in one order-independent sum (``segsum.index_sum``)
+    # over the pairs' ranks in sorted order, and each pair's sum is written
+    # into its block of H: no accumulator of H's size
+    ri = torch.cat([edges.i, edges.j, edges.i, edges.j])
+    ci = torch.cat([edges.i, edges.j, edges.j, edges.i])
     JiTJj = torch.einsum("eai,eaj->eij", Ji, Jj)
-    for (ra, ca), blk in (((bi, bi), torch.einsum("eai,eaj->eij", Ji, Ji)),
-                          ((bj, bj), torch.einsum("eai,eaj->eij", Jj, Jj)),
-                          ((bi, bj), JiTJj),
-                          ((bj, bi), JiTJj.transpose(-1, -2))):
-        H.index_put_((ra[:, :, None], ca[:, None, :]), blk, accumulate=True)
-    g = torch.zeros((dim,), dtype=r.dtype, device=r.device)
-    g.index_put_((bi,), torch.einsum("eai,ea->ei", Ji, r), accumulate=True)
-    g.index_put_((bj,), torch.einsum("eai,ea->ei", Jj, r), accumulate=True)
-    return H, g, 0.5 * torch.sum(r * r)
+    blks = torch.cat([torch.einsum("eai,eaj->eij", Ji, Ji),
+                      torch.einsum("eai,eaj->eij", Jj, Jj),
+                      JiTJj, JiTJj.transpose(-1, -2)])
+    key, order = torch.sort(ri * n + ci)
+    first = torch.ones_like(key)
+    first[1:] = key[1:] != key[:-1]
+    pair = torch.empty_like(key).scatter_(0, order, torch.cumsum(first, 0) - 1)
+    sums = index_sum(blks, pair, key.shape[0])
+    H = torch.zeros((n, 6, n, 6), dtype=blks.dtype, device=blks.device)
+    H[ri, :, ci, :] = sums[pair]    # a pair's members write the same sum
+    bi, bj = _blocks(edges.i), _blocks(edges.j)
+    g = index_sum(torch.cat([torch.einsum("eai,ea->ei", Ji, r),
+                             torch.einsum("eai,ea->ei", Jj, r)]).reshape(-1),
+                  torch.cat([bi, bj]).reshape(-1), dim)
+    return H.reshape(dim, dim), g, 0.5 * torch.sum(r * r)
 
 
 def _retract_all(poses: Pose, dx: torch.Tensor, dof4: bool) -> Pose:
@@ -130,11 +145,13 @@ def pgo_step(poses: Pose, edges: PoseGraphEdges, anchor_idx: int = 0,
     n = poses.q.shape[0]
     dim = n * 6
     H, g, cost = _linearize_edges(poses, edges, dof4)
-    a = anchor_idx * 6 + torch.arange(6, device=H.device)
-    H = H.index_put((a, a), torch.full((6,), anchor_w, device=H.device), accumulate=True)
-    damp = lm_lambda * (torch.diagonal(H) + 1e-3)
-    eye = torch.eye(dim, dtype=H.dtype, device=H.device)
-    L, info = torch.linalg.cholesky_ex(H + torch.diag(damp) + 1e-8 * eye)
+    # anchor, damping and jitter on H's diagonal in place: the step holds
+    # two dim x dim matrices, H and its Cholesky factor
+    diag = H.diagonal()
+    diag[anchor_idx * 6:(anchor_idx + 1) * 6] += anchor_w
+    diag += lm_lambda * (diag + 1e-3)
+    diag += 1e-8
+    L, info = torch.linalg.cholesky_ex(H)
     dx = -torch.cholesky_solve(g[:, None], L)[:, 0]
     dx = torch.where(info == 0, dx, torch.nan)
     return _retract_all(poses, dx.reshape(n, 6), dof4), cost
@@ -153,16 +170,17 @@ def pgo_step_cg(poses: Pose, edges: PoseGraphEdges, anchor_idx: int = 0,
     r, J = _linearize_sparse(poses, edges, dof4)
     Ji, Jj = J[:, :, :6], J[:, :, 6:]
 
-    def scatter_pair(vi, vj, shape):
-        out = torch.zeros((n,) + shape, dtype=dt, device=dev)
-        out.index_add_(0, edges.i, vi)
-        out.index_add_(0, edges.j, vj)
-        return out
+    ij = torch.cat([edges.i, edges.j])
+
+    def scatter_pair(vi, vj):
+        """Per-pose sums of the edges' i-side and j-side terms, in an
+        order-independent sum (``segsum.index_sum``)."""
+        return index_sum(torch.cat([vi, vj]), ij, n)
 
     g = scatter_pair(torch.einsum("eai,ea->ei", Ji, r),
-                     torch.einsum("eai,ea->ei", Jj, r), (6,))
+                     torch.einsum("eai,ea->ei", Jj, r))
     diag = scatter_pair(torch.einsum("eai,eaj->eij", Ji, Ji),
-                        torch.einsum("eai,eaj->eij", Jj, Jj), (6, 6))
+                        torch.einsum("eai,eaj->eij", Jj, Jj))
     cost = 0.5 * torch.sum(r * r)
 
     eye6 = torch.eye(6, dtype=dt, device=dev)
@@ -176,7 +194,7 @@ def pgo_step_cg(poses: Pose, edges: PoseGraphEdges, anchor_idx: int = 0,
         jv = (torch.einsum("eai,ei->ea", Ji, v[edges.i])
               + torch.einsum("eai,ei->ea", Jj, v[edges.j]))
         out = scatter_pair(torch.einsum("eai,ea->ei", Ji, jv),
-                           torch.einsum("eai,ea->ei", Jj, jv), (6,))
+                           torch.einsum("eai,ea->ei", Jj, jv))
         return out + torch.einsum("nij,nj->ni", extra, v)
 
     b = -g
@@ -197,14 +215,24 @@ def pgo_step_cg(poses: Pose, edges: PoseGraphEdges, anchor_idx: int = 0,
     return _retract_all(poses, x, dof4), cost
 
 
+# ``solver="auto"`` takes the dense Cholesky up to this many poses and PCG
+# beyond. A port-only rule (the JAX package switches above 512). On an H100
+# 80GB the dense step was faster than PCG at every ring it fitted, 256 to
+# 12288 poses (3.4 against 17.0 s a GN step at 12288), and peaked at 12.0
+# bytes per entry of the (6n)^2 Hessian: 65 GB at 12288 poses; at 16384 it
+# ran out of device memory (utils/pgo_ladder.py; ROADMAP's standing
+# deviations). So the switch is set by the card's memory, not by time
+AUTO_DENSE_MAX_POSES = 12288
+
+
 def optimize_pose_graph(poses: Pose, edges: PoseGraphEdges, iters: int = 10,
                         anchor_idx: int = 0, mesh=None, dof4: bool = False,
                         solver: str = "auto", cg_iters: int | None = None) -> Pose:
     """Full PGO: ``iters`` damped GN steps.
 
     ``solver``: 'dense' (``pgo_step``), 'cg' (``pgo_step_cg``) or 'auto'
-    (cg beyond 512 poses, where the dense Hessian and its cubic solve grow
-    past the matrix-free form). ``cg_iters`` None sizes the PCG to the
+    (cg beyond ``AUTO_DENSE_MAX_POSES``, where the dense step's memory,
+    which grows with the square of the poses, passes an 80 GB card's). ``cg_iters`` None sizes the PCG to the
     chain-propagation bound n + n/4 (information moves about one pose per
     iteration along a sequential graph)."""
     if mesh is not None:
@@ -213,7 +241,7 @@ def optimize_pose_graph(poses: Pose, edges: PoseGraphEdges, iters: int = 10,
             "devices is not ported yet (ROADMAP A14)")
     n = poses.q.shape[0]
     if solver == "auto":
-        solver = "cg" if n > 512 else "dense"
+        solver = "cg" if n > AUTO_DENSE_MAX_POSES else "dense"
     cg_eff = (n + n // 4) if cg_iters is None else cg_iters
     for _ in range(iters):
         if solver == "cg":

@@ -3,8 +3,9 @@ primitives along a smooth trajectory.
 
 The deterministic replay fixture: every end-to-end gate runs against
 sequences rendered here, with exact ground truth and exact per-point sweep
-timing. Counterpart of ``mloam_tpu/sim/world.py`` (companion objects, movers
-and the corridor course are not ported yet).
+timing. Counterpart of ``mloam_tpu/sim/world.py``: random worlds, the
+degenerate corridor, smooth / circular / straight trajectories, and objects
+that ride with the vehicle (companions) or cross its path (movers).
 
 The world is built from finite rectangles (ground, building walls) and
 vertical cylinders (poles, trunks) — structure that exercises both LOAM
@@ -17,7 +18,9 @@ Worlds, trajectories and range noise are drawn from a ``torch.Generator``;
 the same seed does not give the JAX package's world or noise (different
 generators: the same distributions, other draws). To compare the two
 packages, carry the JAX ``World``/``Trajectory`` across as numpy
-(``utils/convert``).
+(``utils/convert``). Frame i's range noise is drawn from a generator seeded
+by ``(noise_seed, i)`` alone, as the JAX package folds i into its key, so a
+noisy frame does not depend on the frames rendered before it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mloam_tpu_torch import resolve_device
@@ -46,6 +50,13 @@ class World(NamedTuple):
     cyl_xyr: torch.Tensor      # [Q, 3] center x, y, radius
     cyl_z: torch.Tensor        # [Q, 2] zmin, zmax
     cyl_mask: torch.Tensor     # [Q]
+
+
+def frame_noise_seed(noise_seed: int, i: int) -> int:
+    """The seed of frame i's range noise: a 32-bit mix of ``(noise_seed, i)``
+    alone (the CPU generator keeps only a seed's low 32 bits, so the two are
+    mixed rather than packed side by side)."""
+    return int(np.random.SeedSequence([noise_seed, i]).generate_state(1)[0])
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
@@ -91,6 +102,66 @@ def make_world(
     cyl_z = torch.tensor([0.0, 5.0]).expand(n_poles, 2).clone()
     w = World(rect_c, rect_u, rect_v, torch.ones(rect_c.shape[0], dtype=torch.bool),
               cyl_xyr, cyl_z, torch.ones(n_poles, dtype=torch.bool))
+    return World(*(x.to(device) for x in w))
+
+
+def make_corridor_world(length: float = 120.0, width: float = 4.0,
+                        wall_height: float = 4.0,
+                        featured_entry: bool = True,
+                        ceiling: bool = True,
+                        rails: bool = True,
+                        device=None) -> World:
+    """Featureless straight corridor along +x: two parallel side walls,
+    ground (and ceiling), far end caps. Translation along x is geometrically
+    unobservable in the corridor interior (every surface normal is ⊥ x): the
+    degenerate scene the solution remapping exists for. Fixed geometry, no
+    draw: equal to the JAX package's corridor field by field.
+
+    ``ceiling`` closes the top (a tunnel). ``rails``: four thin strips along
+    the corridor (floor curbs and ceiling rails) that add y / z / pitch /
+    roll information and none along x, so the weak direction is a canonical
+    axis rather than a mix (on a 16-ring sensor with a 20 m range it is z
+    for the first ~30 sweeps of the straight course, then x).
+    ``featured_entry``: poles over x in [-12, -1] make the entry segment
+    fully observable (the estimator learns the speed there; inside, the
+    constant-velocity prediction is the only information along x)."""
+    device = resolve_device(device)
+    half = length / 2.0
+    rect_c = torch.tensor([
+        [0.0, 0.0, 0.0],                       # ground strip
+        [0.0, -width / 2.0, wall_height / 2],  # right wall
+        [0.0, width / 2.0, wall_height / 2],   # left wall
+        [half, 0.0, wall_height / 2],          # far end cap
+        [-5.0, 0.0, wall_height / 2],          # entry back wall (⊥ x)
+        [0.0, 0.0, wall_height],               # ceiling (masked if open)
+        # longitudinal rails (masked if rails=False)
+        [0.0, -width / 2 + 0.6, 0.30],
+        [0.0, width / 2 - 0.6, 0.30],
+        [0.0, -width / 2 + 0.6, wall_height - 0.30],
+        [0.0, width / 2 - 0.6, wall_height - 0.30],
+    ])
+    rect_u = torch.tensor([[half, 0.0, 0.0]] * 3 + [[0.0, width, 0.0]] * 2
+                          + [[half, 0.0, 0.0]] * 5)
+    rect_v = torch.tensor([[0.0, width, 0.0]] + [[0.0, 0.0, wall_height / 2]] * 4
+                          + [[0.0, width, 0.0]] + [[0.0, 0.12, 0.0]] * 4)
+    n_poles = 8
+    if featured_entry:
+        # x from -12 to -1 in 7 equal steps, as float32 values equal to the
+        # JAX package's ``linspace`` (its XLA build rounds three of them an
+        # ulp or few away from ``torch.linspace``'s)
+        px = torch.tensor([-12.0, -10.428572, -8.857142, -7.2857137, -5.7142854,
+                           -4.142857, -2.5714278, -1.0])
+        py = torch.where(torch.arange(n_poles) % 2 == 0,
+                         torch.tensor(-width / 2 + 0.4), torch.tensor(width / 2 - 0.4))
+        cyl_xyr = torch.stack([px, py, torch.full((n_poles,), 0.15)], -1)
+        cyl_z = torch.tensor([0.0, wall_height]).expand(n_poles, 2).clone()
+        cyl_mask = torch.ones(n_poles, dtype=torch.bool)
+    else:
+        cyl_xyr = torch.zeros((1, 3))
+        cyl_z = torch.zeros((1, 2))
+        cyl_mask = torch.zeros(1, dtype=torch.bool)
+    rect_mask = torch.tensor([True] * 5 + [bool(ceiling)] + [bool(rails)] * 4)
+    w = World(rect_c, rect_u, rect_v, rect_mask, cyl_xyr, cyl_z, cyl_mask)
     return World(*(x.to(device) for x in w))
 
 
@@ -236,6 +307,27 @@ def make_loop_trajectory(radius: float = 7.0, period_s: float = 10.0,
     return Trajectory(amp, freq, phase, yaw_rate=float(om), wobble=wobble)
 
 
+def make_straight_trajectory(speed: float = 2.0, wobble: float = 0.0,
+                             device=None) -> Trajectory:
+    """Constant-velocity straight line along +x (the corridor course): one
+    very-low-frequency sinusoid whose sin is ~linear over the run."""
+    device = resolve_device(device)
+    om = 0.01
+    amp = torch.tensor([[speed / om, 0.0, 0.0]], device=device)
+    freq = torch.tensor([om], device=device)
+    phase = torch.tensor([[0.0, math.pi / 2, 0.0]], device=device)
+    return Trajectory(amp, freq, phase, yaw_rate=0.0, wobble=wobble)
+
+
+def _with_cylinders(w: World, xyr: torch.Tensor, z: torch.Tensor,
+                    present: torch.Tensor) -> World:
+    """``w`` with K more vertical cylinders ([K, 3] x, y, radius; [K, 2] z
+    range), present where ``present`` ([K] bool tensor) holds."""
+    return w._replace(cyl_xyr=torch.cat([w.cyl_xyr, xyr]),
+                      cyl_z=torch.cat([w.cyl_z, z]),
+                      cyl_mask=torch.cat([w.cyl_mask, present]))
+
+
 def render_sequence(
     world: World,
     traj: Trajectory,
@@ -246,29 +338,81 @@ def render_sequence(
     device=None,
     noise_std: float = 0.0,
     noise_seed: int = 1234,
+    companions: torch.Tensor | None = None,
+    companion_z: torch.Tensor | None = None,
+    companion_frames: tuple[int, int] | None = None,
+    companion_period: tuple[int, int] | None = None,
+    movers: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ):
     """Render n_frames sweeps for one lidar mounted at ``extrinsic``
     (base <- lidar), on ``device`` (the GPU unless the caller passes
-    another). ``noise_std`` adds gaussian range noise, drawn frame after
-    frame from one generator seeded with ``noise_seed``. Returns (RangeImage
-    stacked [F, ...], gt base poses Pose[F] at sweep starts)."""
+    another). ``noise_std`` adds gaussian range noise; frame i draws it from
+    a generator seeded by ``(noise_seed, i)``. Returns (RangeImage stacked
+    [F, ...], gt base poses Pose[F] at sweep starts).
+
+    ``companions`` [K, 3] (x, y, radius in the BASE frame) adds cylinders
+    that move rigidly with the vehicle: their returns are static in the
+    sensor frame, so scan matching reads them as "no motion".
+    ``companion_z`` [K, 2] is each one's z range above the base (default
+    0..2); ``companion_frames`` (start, stop) bounds their presence and
+    ``companion_period`` (on, period) makes them bursts: present for the
+    first ``on`` frames of every ``period``, counted from ``start``.
+
+    ``movers`` = (xyr [K, 3], z [K, 2], vel [K, 2]): cylinders whose
+    world-frame centres move at ``vel`` m/s from their initial positions
+    (cross-traffic: the dynamic outliers the robust losses are for).
+
+    Whether a companion is present in a frame is a tensor, computed from
+    the frame index as the JAX package computes it (no host branch)."""
     device = resolve_device(device)
     world = World(*(x.to(device) for x in world))
     traj = traj._replace(amp=traj.amp.to(device), freq=traj.freq.to(device),
                          phase=traj.phase.to(device))
     if extrinsic is None:
         extrinsic = Pose.identity(device=device)
+    if companions is not None:
+        companions = companions.to(device, torch.float32)
+        k = companions.shape[0]
+        companion_z = (torch.tensor([0.0, 2.0], device=device).expand(k, 2)
+                       if companion_z is None else companion_z.to(device, torch.float32))
+        off = torch.cat([companions[:, :2], torch.zeros((k, 1), device=device)], -1)
+    if movers is not None:
+        movers = tuple(m.to(device, torch.float32) for m in movers)
     dt = model.scan_period
-    noise_gen = torch.Generator().manual_seed(noise_seed) if noise_std > 0.0 else None
     imgs, poses = [], []
     with torch.no_grad():
         for i in range(n_frames):
             ts = t0 + i * dt
             base0 = traj.pose(ts)
             base1 = traj.pose(ts + dt)
+            w = world
+            if movers is not None:
+                m_xyr, m_z, m_vel = movers
+                pos = m_xyr[:, :2] + m_vel * (ts - t0)
+                w = _with_cylinders(
+                    w, torch.cat([pos, m_xyr[:, 2:3]], -1), m_z,
+                    torch.ones(m_xyr.shape[0], dtype=torch.bool, device=device))
+            if companions is not None:
+                # centres ride the base pose (xy only: the cylinders stay
+                # vertical; yaw turns the offset)
+                ctr = rot.quat_rotate(base0.q[None], off) + base0.t[None]
+                fi = torch.tensor(float(i), device=device)
+                present = torch.ones((), dtype=torch.bool, device=device)
+                start = 0
+                if companion_frames is not None:
+                    start = companion_frames[0]
+                    present = (fi >= companion_frames[0]) & (fi < companion_frames[1])
+                if companion_period is not None:
+                    on, period = companion_period
+                    present = present & (torch.remainder(fi - start, float(period)) < on)
+                w = _with_cylinders(
+                    w, torch.cat([ctr[:, :2], companions[:, 2:3]], -1),
+                    companion_z + base0.t[2], present.expand(k))
             p0 = se3.compose(base0, extrinsic)
             p1 = se3.compose(base1, extrinsic)
-            imgs.append(render_scan(world, p0, p1, model, noise_std, noise_gen))
+            gen = (torch.Generator().manual_seed(frame_noise_seed(noise_seed, i))
+                   if noise_std > 0.0 else None)
+            imgs.append(render_scan(w, p0, p1, model, noise_std, gen))
             poses.append(base0)
     stacked = RangeImage(*(torch.stack(x) for x in zip(*imgs)))
     gt = Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))

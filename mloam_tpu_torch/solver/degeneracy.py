@@ -97,6 +97,36 @@ def _projector_from(vecs: torch.Tensor, keep: torch.Tensor,
     return torch.eye(6, dtype=vecs.dtype, device=vecs.device) - sub
 
 
+def block_spectra(H: torch.Tensor):
+    """Both eigendecompositions the gate and the projector need, one
+    ``eigh`` each: (per-block eigvals [n, 6] ascending, eigvectors
+    [n, 6, 6]; the mean non-anchored block's eigvals [6], eigvectors
+    [6, 6])."""
+    blocks = diag_blocks(H)
+    vals, vecs = torch.linalg.eigh(blocks)
+    vals_s, vecs_s = torch.linalg.eigh(_mean_free_block(H))
+    return vals, vecs, vals_s, vecs_s
+
+
+def projector_from_spectra(vals, vecs, vals_s, vecs_s, threshold: float,
+                           max_freeze: int | None = None, shared: bool = False,
+                           rel_gap: float | None = None,
+                           snap_purity: float | None = None) -> torch.Tensor:
+    """``block_projector``'s P [n, 6, 6] from spectra already computed
+    (``vals_s`` / ``vecs_s`` are read only when ``shared`` and n > 1)."""
+    n = vals.shape[0]
+    rank = torch.arange(6, device=vals.device)[None, :]  # ascending eig order
+    if shared and n > 1:
+        keep = _spectral_keep(vals_s[None, :], threshold, rel_gap)
+        if max_freeze is not None:
+            keep = keep | (rank >= max_freeze)
+        return _projector_from(vecs_s, keep[0], snap_purity).expand(n, 6, 6)
+    keep = _spectral_keep(vals, threshold, rel_gap)
+    if max_freeze is not None:
+        keep = keep | (rank >= max_freeze)
+    return _projector_from(vecs, keep, snap_purity)
+
+
 def block_projector(H: torch.Tensor, threshold: float,
                     max_freeze: int | None = None,
                     shared: bool = False,
@@ -119,20 +149,12 @@ def block_projector(H: torch.Tensor, threshold: float,
     either way, for diagnostics/threshold calibration).
     """
     blocks = diag_blocks(H)
-    n = blocks.shape[0]
     vals, vecs = torch.linalg.eigh(blocks)          # [n, 6], [n, 6, 6]
-    rank = torch.arange(6, device=H.device)[None, :]  # ascending eig order
-    if shared and n > 1:
+    vals_s = vecs_s = None
+    if shared and blocks.shape[0] > 1:
         vals_s, vecs_s = torch.linalg.eigh(torch.mean(blocks[1:], dim=0))
-        keep = _spectral_keep(vals_s[None, :], threshold, rel_gap)
-        if max_freeze is not None:
-            keep = keep | (rank >= max_freeze)
-        P_one = _projector_from(vecs_s, keep[0], snap_purity)
-        return P_one.expand(n, 6, 6), vals
-    keep = _spectral_keep(vals, threshold, rel_gap)
-    if max_freeze is not None:
-        keep = keep | (rank >= max_freeze)
-    return _projector_from(vecs, keep, snap_purity), vals
+    return projector_from_spectra(vals, vecs, vals_s, vecs_s, threshold,
+                                  max_freeze, shared, rel_gap, snap_purity), vals
 
 
 def shared_spectrum(H: torch.Tensor) -> torch.Tensor:

@@ -152,6 +152,7 @@ def gauss_newton(
     remap_rel_gap: float | None = None,
     remap_snap_purity: float | None = None,
     remap_P: torch.Tensor | None = None,
+    remap_spectra: tuple | None = None,
     init_linearization=None,
     quad_prior: QuadPriorSpec | None = None,
     linearize_fn: LinearizeFn | None = None,
@@ -171,8 +172,10 @@ def gauss_newton(
     cannot observe) and apply it to every update; block eigenvalues are
     returned in ``GNState.eig0``. ``remap_max_freeze`` caps the number of
     frozen directions per block. ``remap_P`` is an externally built
-    projector. ``remap_fn(H, dx) -> dx`` is the fully general per-iteration
-    form.
+    projector; ``remap_spectra`` = (eig0 [n, 6], eig_shared [6], weak_dir
+    [6]) of the initial measurement Hessian, when the caller computed them
+    with it (then no ``eigh`` runs here: each waits for the device).
+    ``remap_fn(H, dx) -> dx`` is the fully general per-iteration form.
 
     ``init_linearization``: (H, g, cost, H_meas) at x0 when the caller has
     already linearized there.
@@ -190,9 +193,13 @@ def gauss_newton(
                                      quad_prior, linearize_fn, mu0)
     n_bl = dim // 6 if dim % 6 == 0 else 0
     dev, dt = H0.device, H0.dtype
+    eig_sh = wdir = None
     if remap_P is not None:
         P0 = remap_P
-        eig0 = torch.linalg.eigvalsh(degeneracy.diag_blocks(Hm0, n_bl))
+        if remap_spectra is not None:
+            eig0, eig_sh, wdir = remap_spectra
+        else:
+            eig0 = torch.linalg.eigvalsh(degeneracy.diag_blocks(Hm0, n_bl))
     elif remap_threshold is not None:
         P0, eig0 = degeneracy.block_projector(
             Hm0, remap_threshold, remap_max_freeze, shared=remap_shared,
@@ -201,7 +208,8 @@ def gauss_newton(
         P0 = None
     if P0 is not None:
         frozen0 = 6.0 - torch.diagonal(P0, dim1=-2, dim2=-1).sum(-1)
-        eig_sh, wdir = degeneracy.shared_weak_direction(Hm0)
+        if eig_sh is None:
+            eig_sh, wdir = degeneracy.shared_weak_direction(Hm0)
     else:
         eig0 = torch.zeros((n_bl, 6), dtype=dt, device=dev)
         frozen0 = torch.zeros((n_bl,), dtype=dt, device=dev)

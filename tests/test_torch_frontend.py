@@ -74,6 +74,19 @@ def _rows(fc):
     return rows[np.lexsort(rows.T[::-1])]
 
 
+def _assert_same_rows(a, b, atol):
+    """The two row sets are equal within ``atol``: each row of ``a`` is
+    paired with the row of ``b`` nearest to it, the pairing is one to one,
+    and every pair agrees within ``atol``. (Sorting alone pairs the wrong
+    rows when two centroids share a coordinate on one side and differ by an
+    ulp on the other: the summation orders differ.)"""
+    assert a.shape == b.shape
+    d = np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+    pair = d.argmin(1)
+    assert len(set(pair.tolist())) == len(pair)
+    np.testing.assert_allclose(a, b[pair], atol=atol)
+
+
 def test_extract(frame):
     jimg, timg, jseg, tseg = frame
     jcfg = JFeatCfg(cap_less_flat=512)
@@ -92,7 +105,7 @@ def test_extract(frame):
     # less-flat: voxel centroids, as sets, to f32 summation order
     jr, tr = _rows(jff.less_flat), _rows(tff.less_flat)
     assert jr.shape == tr.shape and jr.shape[0] > 100
-    np.testing.assert_allclose(tr, jr, atol=1e-5)
+    _assert_same_rows(tr, jr, atol=1e-5)
 
 
 @pytest.mark.parametrize("precap", [None, 256])
