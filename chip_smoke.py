@@ -77,6 +77,24 @@ sweeps must make:
   poses by conjugate gradients and by the dense solve, timed and compared,
   the dense solve's peak device memory recorded
   (``mloam_tpu_torch.utils.pgo_ladder`` runs larger rings alone).
+- the ingest path: rendered sweeps written as KITTI ``.bin`` files (four
+  also as binary PCD) are read back exactly by the port's C++ dataset
+  reader, whose packed prefetch ring grids each to exactly the wire arrays
+  of ``project`` + ``pack_frame``; VLP-16 packets of 12 sweeps decode to
+  their direct packing and drive ``FullPipeline`` (map ATE < 5 cm); 8
+  ``.bin`` files through ``convert_kitti_sequence`` and ``project`` drive
+  ``OdometryPipeline`` (ATE < 6 cm, each output published); a live 10 Hz
+  stream of 40 sweeps goes through the realtime gate into ``FullPipeline``
+  (the admitted share, ms per admitted sweep and ATE recorded);
+- the resume path: ``FullPipeline`` after 9 sweeps and ``SlamPipeline`` on a
+  small loop course after 12 (a keyframe in flight) are saved and loaded
+  into fresh pipelines: state equal to the bit, the loop graph's keyframe
+  count kept, the next sweep on the first-sweep branch and finite; file
+  sizes and save / load seconds recorded;
+- the experiments path: the programs ``single`` (24 sweeps), ``mc`` (one
+  trial of 24 sweeps in each of its four cells) and ``inject_ext`` (levels
+  gt and inj, 14 sweeps of the dual rig) at full width, ATE < 5 cm (inject
+  at gt), written (TUM, JSON, PCD and the plots' inputs).
 
 The k-NN calls of the corridor path's first steady sweep (its window's
 two: the tracker is skipped) and its label-propagation call, the k-NN calls
@@ -84,8 +102,8 @@ of the dual rig's window solve, of the calibration path's
 first warm sweeps in modes 2 and 1, of the mapper's first match against a
 rebuilt surround map (both mapping paths) and of the slam path's first loop
 detection (its two fine registrations: 12 calls), and the label propagation
-calls of the presets and of the tuned path, are captured from those paths
-and held against the plain versions too.
+calls of the presets, of the tuned path and of a sweep decoded from packets
+are captured from those paths and held against the plain versions too.
 
 One JSON object per line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -98,12 +116,15 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import faulthandler
 import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -114,10 +135,15 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
     sys.exit(1)
 
+# a fatal signal in native code (a kernel's host side, the dataset reader's
+# threads) prints every thread's Python stack instead of dying silently
+faulthandler.enable(all_threads=True)
+
 import numpy as np  # noqa: E402
 
 import mloam_tpu_torch  # noqa: E402
 from mloam_tpu_torch import config as C  # noqa: E402
+from mloam_tpu_torch.core import rangeimage as RI  # noqa: E402
 from mloam_tpu_torch.core import se3  # noqa: E402
 from mloam_tpu_torch.core.rangeimage import LidarModel, RangeImage  # noqa: E402
 from mloam_tpu_torch.core.se3 import Pose  # noqa: E402
@@ -126,6 +152,7 @@ from mloam_tpu_torch.models import platforms, run_synthetic  # noqa: E402
 from mloam_tpu_torch.loop import global_registration as GREG  # noqa: E402
 from mloam_tpu_torch.loop import posegraph as PGraph  # noqa: E402
 from mloam_tpu_torch.mapping import mapper as MP  # noqa: E402
+from mloam_tpu_torch.models import experiments as EXP  # noqa: E402
 from mloam_tpu_torch.models import pipeline as PIPE  # noqa: E402
 from mloam_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline  # noqa: E402
 from mloam_tpu_torch.parallel import sharded_pgo as PG  # noqa: E402
@@ -134,7 +161,11 @@ from mloam_tpu_torch.ops import knn as knn_ops  # noqa: E402
 from mloam_tpu_torch.ops import segsum, voxel  # noqa: E402
 from mloam_tpu_torch.sim import world as W  # noqa: E402
 from mloam_tpu_torch.utils import evaluation, timing  # noqa: E402
+from mloam_tpu_torch.utils import checkpoint as CK  # noqa: E402
+from mloam_tpu_torch.utils import dataio, viz  # noqa: E402
 from mloam_tpu_torch.utils import pgo_ladder as LADDER  # noqa: E402
+from mloam_tpu_torch.utils.publisher import Publisher, publish_odometry_output  # noqa: E402
+from mloam_tpu_torch.utils.realtime import RealtimeGate, gated  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(0).multi_processor_count
@@ -191,6 +222,18 @@ ROBUST_MOVERS = ([[5.0, 2.0, 0.6], [-3.0, 6.0, 0.6], [7.0, -4.0, 0.5]],
 REPEAT_CALLS = 20
 # the dual rig's prior extrinsic covariance on the map rig path ([rho; phi]
 # diagonal: 1 cm and 3 mrad standard deviations)
+# the deployment layer (ingest_path, resume_path, experiments_path)
+INGEST_FRAMES = 12          # packets -> FullPipeline (tests/test_ingest_e2e.py:36-66)
+INGEST_BIN_FRAMES = 8       # .bin -> shard -> OdometryPipeline (:69-105)
+INGEST_BIN_ATE_GATE_M = 0.06
+INGEST_PCD_FILES = 4
+INGEST_CAP = 40_000         # the shard's points per sweep (:88)
+GATED_FRAMES = 40           # a live 10 Hz stream through the realtime gate
+GATED_MAX_LAG_S = 0.2
+RESUME_FRAMES = 9           # tests/test_checkpoint.py:18-45
+RESUME_SLAM_FRAMES = 12     # tests/test_checkpoint.py:58-100
+EXP_FRAMES = 24             # experiments single, and mc's four cells
+EXP_INJECT_FRAMES = 14      # experiments inject_ext on the dual rig
 MAP_RIG_EXT_COV = (1e-4, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
 # what the JAX package's `experiments calib` program recorded for the same
 # lifecycle (results/calib/summary.json): its world is drawn by another
@@ -1916,6 +1959,426 @@ def phase_pgo_check():
     emit({"pgo_ladder": {"auto_dense_max_poses": PG.AUTO_DENSE_MAX_POSES, "rings": ladder}})
 
 
+# --------------------------------------------------------------------------
+# the deployment layer: ingest, resume, experiment programs
+# --------------------------------------------------------------------------
+
+class FullSweepCheck:
+    """While active, every ``FullPipeline.process`` call (a ``SlamPipeline``'s
+    too) has its launch counters checked: K1 once per lidar; K2 none on a
+    first-sweep branch (a fresh or a restored pipeline), else the odometry's
+    (``knn_per_sweep``), plus 2 per outer iteration on a mapped sweep whose
+    mapper already held a map. The checks are made on the counts the call
+    itself added, so a ``SlamPipeline``'s detections, made after it, are
+    left to the caller."""
+
+    def __init__(self, name):
+        self.name, self.sweeps, self.labels, self.knn = name, 0, 0, 0
+        self.real = FullPipeline.process
+
+    def __enter__(self):
+        real, check = self.real, self
+
+        def process(pipe, imgs):
+            cfg = pipe.cfg
+            i, first = pipe.odom.frame_idx, pipe.odom.prev_feats[0] is None
+            had_map = pipe.mapper_state.step > 0
+            l0, k0 = hopper_labels.launches, hopper_knn.launches
+            out = real(pipe, imgs)
+            want_k = 0 if first else knn_per_sweep(i, 0, cfg.rig.n_lidars,
+                                                   cfg.odometry.window_size)
+            if out.mapped and had_map:
+                want_k += 2 * cfg.mapping.outer_iters
+            d_l, d_k = hopper_labels.launches - l0, hopper_knn.launches - k0
+            if (d_l, d_k) != (cfg.rig.n_lidars, want_k):
+                fail(f"{check.name}, sweep {i}: labels {d_l} (expected "
+                     f"{cfg.rig.n_lidars}), knn {d_k} (expected {want_k})")
+            check.sweeps += 1
+            check.labels += cfg.rig.n_lidars
+            check.knn += want_k
+            return out
+
+        FullPipeline.process = process
+        return self
+
+    def __exit__(self, *exc):
+        FullPipeline.process = self.real
+
+
+def _sweep_points(img):
+    """The valid returns of a rendered sweep as [N, 4] float32 xyzi."""
+    ok = img.valid.reshape(-1)
+    return torch.cat([img.xyz.reshape(-1, 3)[ok], img.intensity.reshape(-1, 1)[ok]],
+                     dim=1).cpu().numpy().astype(np.float32)
+
+
+def _write_pcd_binary(path, pts):
+    hdr = ("VERSION .7\nFIELDS x y z intensity\nSIZE 4 4 4 4\nTYPE F F F F\n"
+           f"COUNT 1 1 1 1\nWIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+           f"POINTS {len(pts)}\nDATA binary\n")
+    with open(path, "wb") as f:
+        f.write(hdr.encode())
+        f.write(np.ascontiguousarray(pts, np.float32).tobytes())
+
+
+def live_stream(frames, period_s):
+    """(stamp, frame) pairs of a sensor delivering one sweep every
+    ``period_s`` from now on: a pair is handed out no earlier than its
+    arrival."""
+    start = time.monotonic()
+    for i, f in enumerate(frames):
+        wait = start + i * period_s - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        yield i * period_s, (i, f)
+
+
+def phase_ingest_path(cfg, tmp):
+    """Files and packets into the pipelines. Rendered sweeps are written as
+    KITTI .bin files (four also as binary PCD); the C++ loader must read them
+    back exactly and its packed ring must grid each to exactly the wire
+    arrays of ``project`` + ``pack_frame`` (``dataio.grid_pack_plain``, f64);
+    the device's f32 ``project`` is compared and its count differences
+    recorded. Then the two routes of the JAX package's
+    ``tests/test_ingest_e2e.py``: VLP-16 packets -> ``vlp16_decode`` ->
+    ``FullPipeline`` (each decoded frame equal to the direct packing, ATE
+    < 5 cm) and ``.bin`` -> ``convert_kitti_sequence`` -> ``project`` ->
+    ``OdometryPipeline`` (ATE < 6 cm, each output published); K1 held
+    against its plain version on a decoded frame; and a live 10 Hz stream
+    of 40 sweeps through ``RealtimeGate`` into ``FullPipeline``, recorded."""
+    model = cfg.rig.models[0]
+    ws = cfg.odometry.window_size
+    n_render = max(INGEST_FRAMES, INGEST_BIN_FRAMES)
+    imgs, gt = run_synthetic.render(cfg, n_render, seed=0, device=DEV)
+    frames = [RangeImage(*(f[i] for f in imgs)) for i in range(n_render)]
+    gt_t = gt.t.cpu().numpy()
+    d = os.path.join(tmp, "velodyne")
+    os.makedirs(d)
+    bins, pcds, pts_all = [], [], []
+    for i, f in enumerate(frames):
+        pts = _sweep_points(f)
+        pts_all.append(pts)
+        bins.append(os.path.join(d, f"{i:06d}.bin"))
+        pts.tofile(bins[-1])
+        if i < INGEST_PCD_FILES:
+            pcds.append(os.path.join(tmp, f"{i:06d}.pcd"))
+            _write_pcd_binary(pcds[-1], pts)
+    t = time.perf_counter()
+    dataio.library()
+    build_s = time.perf_counter() - t
+    for p, pts in zip(bins, pts_all):
+        if not np.array_equal(dataio.read_kitti_bin(p), pts):
+            fail(f"ingest_path: {p} did not read back exactly")
+    for p, pts in zip(pcds, pts_all):
+        if not (np.array_equal(dataio.read_pcd(p), pts)
+                and np.array_equal(dataio.read_pcd_plain(p), pts)):
+            fail(f"ingest_path: {p} did not read back exactly")
+    reader = dataio.PrefetchReader(bins)
+    streamed = list(reader)
+    reader.close()
+    if len(streamed) != len(bins) or not all(np.array_equal(a, b)
+                                             for a, b in zip(streamed, pts_all)):
+        fail("ingest_path: the prefetch ring did not stream the files back exactly")
+    t = time.perf_counter()
+    reader = dataio.PackedPrefetchReader(bins, model)
+    packed = list(reader)
+    reader.close()
+    packed_s = time.perf_counter() - t
+    f32_diff = []
+    for (rq, iq), pts, f in zip(packed, pts_all, frames):
+        prq, piq = dataio.grid_pack_plain(pts, model)
+        if not (np.array_equal(rq, prq) and np.array_equal(iq, piq)):
+            fail("ingest_path: the packed ring differs from project + pack_frame")
+        dev = RI.project(torch.from_numpy(pts[:, :3]).to(DEV),
+                         torch.ones(len(pts), dtype=torch.bool, device=DEV), model,
+                         intensity=torch.from_numpy(pts[:, 3]).to(DEV))
+        drq = RI.pack_frame(dev).rng_q
+        diff = np.abs(drq.astype(np.int64) - rq.astype(np.int64))
+        f32_diff.append([int((diff > 0).sum()), int(diff.max())])
+    if len(packed) != len(bins):
+        fail(f"ingest_path: the packed ring yielded {len(packed)} of {len(bins)} sweeps")
+
+    # route A: VLP-16 packets -> FullPipeline
+    label_case = []
+    real_labels = hopper_labels.propagate_labels
+
+    def rec_labels(labels, ch, cv, rounds=3):
+        if not label_case:
+            label_case.append((labels.clone(), ch.clone(), cv.clone(), rounds))
+        return real_labels(labels, ch, cv, rounds)
+
+    zero_counters()
+    pipe = FullPipeline(cfg, device=DEV)
+    est, codec_ms, returns = [], [], 0
+    with FullSweepCheck("ingest_path packets") as chk:
+        for i in range(INGEST_FRAMES):
+            pf = RI.pack_frame(frames[i])
+            ring, col = np.nonzero(pf.rng_q)
+            t = time.perf_counter()
+            pkts = dataio.encode_vlp16_packets(ring, col, pf.rng_q[ring, col],
+                                               pf.intensity_q[ring, col], model.n_cols)
+            t_enc = time.perf_counter()
+            rq, iq, n_ret = dataio.vlp16_decode(pkts, model)
+            codec_ms.append([(t_enc - t) * 1e3, (time.perf_counter() - t_enc) * 1e3])
+            if not (np.array_equal(rq, pf.rng_q) and np.array_equal(iq, pf.intensity_q)
+                    and n_ret == int((rq > 0).sum())):
+                fail(f"ingest_path: sweep {i} decoded from packets differs from its packing")
+            returns += n_ret
+            hopper_labels.propagate_labels = rec_labels if i == ws + 1 else real_labels
+            try:
+                out = pipe.process([RI.PackedFrame(rq, iq)])
+            finally:
+                hopper_labels.propagate_labels = real_labels
+            est.append(out.map_pose.t)
+    ate_packets = evaluation.ate_rmse(torch.stack(est).cpu().numpy(), gt_t[:INGEST_FRAMES])
+    n_l, n_k = hopper_labels.launches, hopper_knn.launches
+    check_counters("ingest_path packets", n_l, n_k, INGEST_FRAMES, chk.knn)
+    if not ate_packets < ATE_GATE_M:
+        fail(f"ingest_path: packet-ingest ATE {ate_packets:.4f} m is not under {ATE_GATE_M} m")
+
+    # route B: .bin -> convert_kitti_sequence -> project -> OdometryPipeline
+    shard = os.path.join(tmp, "seq.npz")
+    n_conv = dataio.convert_kitti_sequence(d, shard, max_frames=INGEST_BIN_FRAMES,
+                                           cap=INGEST_CAP)
+    data = np.load(shard)
+    pub, msgs = Publisher(), []
+    pub.subscribe("/laser_odom", msgs.append, queue_size=INGEST_BIN_FRAMES)
+    counter = SweepCounter("ingest_path bin", lambda i, out, p: (1, knn_per_sweep(i, 0, 1, ws)))
+    odo = OdometryPipeline(cfg, device=DEV)
+    est = []
+    l0, k0 = hopper_labels.launches, hopper_knn.launches
+    counter.seen.update(labels=l0, knn=k0)
+    for i in range(n_conv):
+        xyzi = torch.from_numpy(data["xyzi"][i]).to(DEV)
+        img = RI.project(xyzi[:, :3], torch.from_numpy(data["mask"][i]).to(DEV), model,
+                         intensity=xyzi[:, 3])
+        out = odo.process([img])
+        counter(i, out, odo)
+        publish_odometry_output(pub, out, stamp=i * model.scan_period)
+        est.append(out.pose.t)
+    pub.spin_once()
+    est = torch.stack(est).cpu().numpy()
+    if len(msgs) != n_conv or not np.array_equal(np.stack([m.t for m in msgs]), est):
+        fail("ingest_path: the published poses differ from the pipeline's")
+    ate_bin = evaluation.ate_rmse(est, gt_t[:n_conv])
+    if n_conv != INGEST_BIN_FRAMES or not ate_bin < INGEST_BIN_ATE_GATE_M:
+        fail(f"ingest_path: kitti-shard ATE {ate_bin:.4f} m over {n_conv} sweeps "
+             f"(gate {INGEST_BIN_ATE_GATE_M} m)")
+
+    # a live 10 Hz stream through the realtime gate into FullPipeline
+    stream_imgs, stream_gt = run_synthetic.render(cfg, GATED_FRAMES, seed=0, device=DEV)
+    stream = [RangeImage(*(f[i] for f in stream_imgs)) for i in range(GATED_FRAMES)]
+    gate = RealtimeGate(max_lag_s=GATED_MAX_LAG_S)
+    pipe = FullPipeline(cfg, device=DEV)
+    admitted, est, ms = [], [], []
+    with FullSweepCheck("ingest_path gated") as chk_g:
+        for _, (i, f) in gated(live_stream(stream, model.scan_period), gate):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pipe.process([f])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            admitted.append(i)
+            est.append(out.map_pose.t)
+    st = gate.stats()
+    if st["admitted"] + st["dropped"] != GATED_FRAMES or st["admitted"] < 2:
+        fail(f"ingest_path: the gate admitted {st['admitted']} and dropped {st['dropped']} "
+             f"of {GATED_FRAMES} sweeps")
+    ate_gated = evaluation.ate_rmse(torch.stack(est).cpu().numpy(),
+                                    stream_gt.t.cpu().numpy()[admitted])
+    launches = {"propagate_labels": hopper_labels.launches, "knn": hopper_knn.launches}
+    check_counters("ingest_path", launches["propagate_labels"], launches["knn"],
+                   chk.labels + n_conv + chk_g.labels,
+                   chk.knn + sum(knn_per_sweep(i, 0, 1, ws) for i in range(n_conv)) + chk_g.knn)
+    # K1 on a decoded frame against its plain version (after the count: these
+    # launches compare, they are not the path's)
+    label_checks = check_labels("ingest_decoded_frame", label_case[0][:3], (label_case[0][3],))
+    emit({"ingest_path": {
+        "files": {"bin": len(bins), "pcd": len(pcds),
+                  "points_per_sweep": [int(len(p)) for p in pts_all]},
+        "dataset_library_build_s": build_s,
+        "packed_reader_s": packed_s,
+        "packed_reader_sweeps_per_s_host": len(packed) / packed_s,
+        "device_project_f32_vs_f64_cells_differing_max_counts": f32_diff,
+        "packets": {"frames": INGEST_FRAMES, "ate_m": ate_packets,
+                    "returns_decoded": returns,
+                    "encode_ms_median": _median([c[0] for c in codec_ms]),
+                    "decode_ms_median": _median([c[1] for c in codec_ms])},
+        "kitti_shard": {"frames": n_conv, "ate_m": ate_bin, "published": len(msgs)},
+        "gated_stream": {"frames": GATED_FRAMES, "max_lag_s": GATED_MAX_LAG_S,
+                         **st, "admitted_share": st["admitted"] / GATED_FRAMES,
+                         "admitted_sweeps": admitted,
+                         "ms_per_admitted_sweep_median": _median(ms),
+                         "ms_per_admitted_sweep": ms, "ate_admitted_m": ate_gated},
+        "label_check": label_checks,
+        "launches": launches, "width": width(cfg),
+    }})
+    return launches, label_checks
+
+
+def _file_mb(path):
+    return os.path.getsize(path) / 1e6
+
+
+def phase_resume_path(cfg, tmp):
+    """Checkpoint and resume. ``FullPipeline``: 9 sweeps, saved, loaded into
+    a fresh pipeline (frame index, window poses and the keyframe ring's
+    valid mask equal to the bit); the next sweep takes the first-sweep
+    branch (its pose the restored world pose, no solve) and the one after
+    the steady step, both finite. ``SlamPipeline`` on the small loop course
+    of the JAX package's ``tests/test_checkpoint.py:71-79``, saved with a
+    keyframe in flight: the restored keyframe count equals the stored one,
+    ``kf_counter`` is kept, the next sweep is finite. File sizes, save and
+    load seconds recorded."""
+    zero_counters()
+    n = RESUME_FRAMES
+    imgs, _ = run_synthetic.render(cfg, n + 2, seed=0, device=DEV)
+    frames = [RangeImage(*(f[i] for f in imgs)) for i in range(n + 2)]
+    pipe = FullPipeline(cfg, device=DEV)
+    with FullSweepCheck("resume_path full") as chk:
+        for f in frames[:n]:
+            pipe.process([f])
+        path = os.path.join(tmp, "full.npz")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        CK.save_pipeline(path, pipe)
+        save_s = time.perf_counter() - t
+        pipe2 = FullPipeline(cfg, device=DEV)
+        t = time.perf_counter()
+        CK.load_pipeline(path, pipe2)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        o, o2 = pipe.odom, pipe2.odom
+        if not (o2.frame_idx == o.frame_idx == n
+                and torch.equal(o2.window.poses.t, o.window.poses.t)
+                and torch.equal(o2.window.poses.q, o.window.poses.q)
+                and torch.equal(pipe2.mapper_state.db.valid, pipe.mapper_state.db.valid)
+                and pipe2.mapper_state.step == pipe.mapper_state.step):
+            fail("resume_path: the restored FullPipeline differs from the saved one")
+        world = o2.world_pose.t.clone()
+        first = pipe2.process([frames[n]])
+        if first.odom.win_eig is not None or not torch.equal(first.odom.pose.t, world):
+            fail("resume_path: the restored pipeline did not re-enter through the "
+                 "first-sweep branch")
+        nxt = pipe2.process([frames[n + 1]])
+        if nxt.odom.win_eig is None:
+            fail("resume_path: the sweep after the first-sweep branch was not a steady step")
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     (first.map_pose.t, nxt.map_pose.t, nxt.odom.pose.q))
+        if not finite:
+            fail("resume_path: the resumed pipeline gave non-finite poses")
+    full_rec = {"frames_before_save": n, "file_mb": _file_mb(path), "save_s": save_s,
+                "load_s": load_s, "keyframes": int(pipe.mapper_state.db.valid.sum()),
+                "mapper_steps": pipe.mapper_state.step}
+
+    # SlamPipeline with a keyframe in flight
+    scfg = dataclasses.replace(
+        cfg, mapping=dataclasses.replace(cfg.mapping, keyframe_dist=0.3, skip_frames=1),
+        loop=dataclasses.replace(cfg.loop, skip_interval=1, capacity=32))
+    sim, _ = run_synthetic.render_rig(scfg, RESUME_SLAM_FRAMES, seed=2, device=DEV,
+                                      world={"extent": 25.0},
+                                      loop={"radius": 5.0, "period_s": 8.0})
+    sframes = [RangeImage(*(f[i] for f in sim[0])) for i in range(RESUME_SLAM_FRAMES)]
+    per_detect = 12 if scfg.loop.use_global_registration else 6
+    slam = PIPE.SlamPipeline(scfg, device=DEV)
+    k0 = hopper_knn.launches
+    with FullSweepCheck("resume_path slam") as chk_s:
+        for f in sframes:
+            slam.process([f])
+        in_flight = slam._pending_kf is not None or slam._pending_verify is not None
+        if not in_flight:
+            fail("resume_path: no keyframe in flight at the save")
+        spath = os.path.join(tmp, "slam.npz")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        CK.save_pipeline(spath, slam)
+        ssave_s = time.perf_counter() - t
+        slam2 = PIPE.SlamPipeline(scfg, device=DEV)
+        t = time.perf_counter()
+        CK.load_pipeline(spath, slam2)
+        torch.cuda.synchronize()
+        sload_s = time.perf_counter() - t
+        stored = int(slam2.loop_state.count)
+        if not (slam2.loop_kf_count == stored == slam.loop_kf_count
+                and slam2.kf_counter == slam.kf_counter):
+            fail(f"resume_path: restored loop keyframes {slam2.loop_kf_count}, stored "
+                 f"{stored}, saved {slam.loop_kf_count}; kf_counter {slam2.kf_counter} "
+                 f"against {slam.kf_counter}")
+        sout = slam2.process([sframes[-1]])
+        if not bool(torch.isfinite(sout.full.map_pose.t).all()):
+            fail("resume_path: the resumed SlamPipeline gave a non-finite pose")
+    detections = slam.n_detections + slam2.n_detections
+    if hopper_knn.launches - k0 != chk_s.knn + per_detect * detections:
+        fail(f"resume_path slam: knn {hopper_knn.launches - k0}, expected "
+             f"{chk_s.knn + per_detect * detections}")
+    launches = {"propagate_labels": hopper_labels.launches, "knn": hopper_knn.launches}
+    check_counters("resume_path", launches["propagate_labels"], launches["knn"],
+                   chk.labels + chk_s.labels, chk.knn + chk_s.knn + per_detect * detections)
+    emit({"resume_path": {
+        "full": full_rec,
+        "slam": {"frames_before_save": RESUME_SLAM_FRAMES, "file_mb": _file_mb(spath),
+                 "save_s": ssave_s, "load_s": sload_s, "loop_keyframes": stored,
+                 "kf_counter": slam2.kf_counter, "detections": detections},
+        "launches": launches, "width": width(cfg),
+    }})
+    return launches
+
+
+def phase_experiments_path(tmp):
+    """The experiment programs' measurements at full width, their launch
+    counters checked on every sweep: ``single`` (24 sweeps, ATE < 5 cm; its
+    keyframe map exported as PCD), ``mc`` (one trial of 24 sweeps in each of
+    its four cells, each ATE < 5 cm) and ``inject_ext`` at levels gt and inj,
+    ua off and on, one trial of 14 sweeps of the dual rig (at gt, ATE
+    < 5 cm). Each is written (TUM, JSON, PCD and the plots' inputs; the PNGs
+    are drawn elsewhere by ``experiments plot``: matplotlib is not needed
+    here)."""
+    zero_counters()
+    out, written = {}, {}
+    with FullSweepCheck("experiments_path") as chk:
+        res = EXP.measure_single(EXP_FRAMES, device=DEV)
+        written["single"] = EXP.write_single(res, tmp)
+        xyz, mask = EXP.keyframe_map(res["pipe"].mapper_state.db)
+        pcd = os.path.join(written["single"], "map.pcd")
+        viz.export_map_pcd(pcd, xyz, mask)
+        with open(pcd) as f:
+            head = f.read(400)
+        if f"POINTS {int(mask.sum())}\n" not in head or not mask.any():
+            fail("experiments_path: the exported keyframe map is empty or miscounted")
+        out["single"] = {k: res["summary"][k] for k in ("ate_m", "fps", "frames")}
+        out["single"]["map_points"] = int(mask.sum())
+        if not res["ate_m"] < ATE_GATE_M:
+            fail(f"experiments_path: single ATE {res['ate_m']:.4f} m")
+        mc = EXP.measure_mc(1, EXP_FRAMES, device=DEV)
+        written["mc"] = EXP.write_mc(mc, tmp)
+        out["mc"] = mc["summary"]
+        for name, cell in mc["summary"]["cells"].items():
+            if not cell["ate_max_m"] < ATE_GATE_M:
+                fail(f"experiments_path: mc cell {name} ATE {cell['ate_max_m']:.4f} m")
+        inj = EXP.measure_inject_ext(EXP_INJECT_FRAMES, 0, 1, ("gt", "inj"), device=DEV)
+        written["inject_ext"] = EXP.write_inject_ext(inj, tmp)
+        out["inject_ext"] = inj["summary"]
+        gt_level = inj["summary"]["gt"]
+        if not (gt_level["ate_m_off"] < ATE_GATE_M and gt_level["ate_m_ua"] < ATE_GATE_M):
+            fail(f"experiments_path: inject_ext at gt ATE {gt_level['ate_m_off']:.4f} / "
+                 f"{gt_level['ate_m_ua']:.4f} m")
+    files = {k: sorted(os.listdir(v)) for k, v in written.items()}
+    for k, v in written.items():
+        with open(os.path.join(v, "summary.json")) as f:
+            if not json.load(f):
+                fail(f"experiments_path: {k} wrote an empty summary")
+        if os.path.exists(os.path.join(v, "plots.npz")):
+            with np.load(os.path.join(v, "plots.npz")) as z:
+                if not all(np.isfinite(z[a]).all() for a in z.files):
+                    fail(f"experiments_path: {k}'s plot inputs are not finite")
+    launches = {"propagate_labels": hopper_labels.launches, "knn": hopper_knn.launches}
+    check_counters("experiments_path", launches["propagate_labels"], launches["knn"],
+                   chk.labels, chk.knn)
+    emit({"experiments_path": {**out, "files": files, "sweeps": chk.sweeps,
+                               "launches": launches}})
+    return launches
+
+
 class Laps:
     """Seconds between successive marks, by the name of the phase just done."""
 
@@ -2025,6 +2488,21 @@ def main():
     lap("repeat_check")
     phase_pgo_check()
     lap("pgo_checks")
+
+    # the deployment layer: files and packets in, checkpoint and resume, the
+    # experiment programs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        by_path["ingest_path"], ingest_labels = phase_ingest_path(cfg, tmp)
+        emit({"kernel_checks": {"labels_ingest": ingest_labels}})
+        k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in ingest_labels])
+        lap("ingest_path")
+        by_path["resume_path"] = phase_resume_path(cfg, tmp)
+        lap("resume_path")
+        by_path["experiments_path"] = phase_experiments_path(tmp)
+        lap("experiments_path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     for kern, key in ((k1, "propagate_labels"), (k2, "knn")):
         kern["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

@@ -11,16 +11,19 @@ inside: plain functions on tensors, NamedTuple state containers, an explicit
   ops/       batched primitives: k-NN, voxel reductions (plain and
              uncertainty-weighted), masked top-k, and the two hand-written
              CUDA kernels (label propagation, fused k-NN)
-  csrc/      CUDA C++ sources of those kernels (built by ops/_build.py)
+  csrc/      CUDA C++ sources of those kernels, and the host C++ dataset
+             reader (all built by ops/_build.py at first use)
   frontend/  segmentation, curvature feature extraction
   solver/    factor library, robust losses, Gauss-Newton, marginalization,
              degeneracy projector, good-feature selection
   odometry/  scan-to-scan tracker, sliding-window estimator, calibration
   mapping/   keyframe ring and uncertainty-aware scan-to-map refinement
-  models/    odometry and odometry + mapping pipelines, platform presets and
-             the synthetic run program
+  models/    odometry, mapping and SLAM pipelines, platform presets, the
+             synthetic run program and the experiment programs
   sim/       synthetic world, trajectory and ray-cast renderer
-  utils/     timing registry, trajectory evaluation, numpy state conversion
+  utils/     timing registry, trajectory evaluation, numpy state conversion,
+             and the deployment layer: file and packet ingest, checkpoint and
+             resume, the realtime gate, the publisher, plots
 
 This package imports torch and numpy only; never jax, never mloam_tpu.
 

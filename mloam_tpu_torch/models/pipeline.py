@@ -319,7 +319,11 @@ class OdometryPipeline:
         return refined, pred, solve, trk_eig
 
     def _is_steady(self) -> bool:
-        return self.ext_mode == 0 and self.frame_idx >= self.cfg.odometry.window_size
+        # a pipeline restored from a checkpoint has no previous sweep's
+        # features: it re-enters through the first-sweep branch, as the JAX
+        # package's does (its fused paths require prev_feats[0] too)
+        return (self.ext_mode == 0 and self.prev_feats[0] is not None
+                and self.frame_idx >= self.cfg.odometry.window_size)
 
     @torch.no_grad()
     def process_chunk(self, imgs_stacked):
@@ -335,7 +339,7 @@ class OdometryPipeline:
         if not self._is_steady():
             raise RuntimeError(
                 "process_chunk requires the steady pure-odometry phase "
-                "(ext_mode 0, window full)")
+                "(ext_mode 0, window full, a previous sweep tracked)")
         per_lidar = (imgs_stacked,) if L == 1 else tuple(imgs_stacked)
         if len(per_lidar) != L:
             raise ValueError(f"process_chunk: {len(per_lidar)} sequences for {L} lidars")

@@ -37,7 +37,9 @@ from mloam_tpu_torch.utils import evaluation, timing
 
 # Loop courses for ``run(slam=True)``: "floor" is the floor course of the JAX
 # package's tests/test_slam_e2e.py:26-55, "drift" the slam pass of its
-# bench.py:295-340 (on ``realtime_tuned``, under range noise)
+# bench.py:295-340 (on ``realtime_tuned``, under range noise), "experiment"
+# the course of its ``experiments slam --traj loop`` (models/experiments.py:
+# 513-538, at the program's default noise 0.02 m and seed 0)
 LOOP_COURSES = {
     "floor": {"frames": 110, "seed": 3, "tuned": False,
               "mapping": {"skip_frames": 2},
@@ -50,6 +52,13 @@ LOOP_COURSES = {
               "course": {"world": {"extent": 30.0, "n_walls": 24, "n_poles": 12},
                          "loop": {"radius": 8.0, "period_s": 12.0},
                          "noise_std": 0.03, "noise_seed": 77}},
+    "experiment": {"frames": 30, "seed": 0, "tuned": False,
+                   "mapping": {"surround_radius": 15.0, "surround_rebuild_dist": 3.0},
+                   "loop": {"num_exclude_recent": 10, "capacity": 256,
+                            "use_global_registration": True},
+                   "course": {"world": {"extent": 30.0, "n_walls": 24, "n_poles": 12},
+                              "loop": {"radius": 8.0, "period_s": 12.0},
+                              "noise_std": 0.02, "noise_seed": 1000}},
 }
 
 
@@ -152,7 +161,7 @@ def run(n_frames: int = 40, seed: int = 0, verbose: bool = True,
         odom.set_extrinsics(extrinsics)
 
     timing.reset()
-    est_t, est_q, modes, ext_err, map_t, mapped = [], [], [], [], [], []
+    est_t, est_q, modes, ext_err, map_t, map_q, mapped = [], [], [], [], [], [], []
     kinds, kf_gt_idx, prev_kf, last_mapped = [], [], 0, -1
     t_start = time.perf_counter()
     for i in range(n_frames):
@@ -162,6 +171,7 @@ def run(n_frames: int = 40, seed: int = 0, verbose: bool = True,
         full = out.full if slam else out
         if mapping or slam:
             map_t.append(full.map_pose.t.cpu().numpy())
+            map_q.append(full.map_pose.q.cpu().numpy())
             mapped.append(full.mapped)
         if slam:
             is_kf = pipe.loop_kf_count != prev_kf
@@ -202,7 +212,7 @@ def run(n_frames: int = 40, seed: int = 0, verbose: bool = True,
         "device": str(device),
     }
     if mapping or slam:
-        res.update(map_est_t=np.stack(map_t), mapped=mapped,
+        res.update(map_est_t=np.stack(map_t), map_est_q=np.stack(map_q), mapped=mapped,
                    map_ate_m=evaluation.ate_rmse(np.stack(map_t), gt_t))
     if slam:
         corr_t, corr_q = pipe.corrected_trajectory()

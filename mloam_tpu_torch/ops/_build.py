@@ -1,13 +1,21 @@
-"""The one place that builds and loads the hand-written CUDA kernels.
+"""The one place that builds and loads the package's native code.
 
-``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a`` into shared libraries
-with a plain C interface (no PyTorch headers, so a build takes seconds) under
-``mloam_tpu_torch/_build/``, at first use, keyed by a hash of the sources, and
-loaded with ``ctypes``. One ``nvcc`` process per source, all started together.
-A failed build raises; nothing here falls back to anything.
+``csrc/*.cu``, the hand-written CUDA kernels, are compiled with ``nvcc`` for
+``sm_90a`` into shared libraries with a plain C interface (no PyTorch
+headers, so a build takes seconds) under ``mloam_tpu_torch/_build/``, at
+first use, keyed by a hash of the sources, and loaded with ``ctypes``. One
+``nvcc`` process per source, all started together.
 
-Nothing in this module runs at import: machines without ``nvcc`` import the
-package and use the plain versions on CPU tensors.
+``csrc/*.cpp`` is host code (the dataset reader of ``utils/dataio``: file and
+packet decoding, gridding, prefetch threads). It goes the host route: the
+host C++ compiler (``c++ -O3 -std=c++17 -shared -fPIC -pthread`` with its
+C++ runtime linked in, ``HOST_CXX_FLAGS``), the same hashed library names
+under ``_build/``, ``ctypes``. ``nvcc`` builds only the
+``.cu`` sources.
+
+A failed build raises; nothing here falls back to anything. Nothing in this
+module runs at import: machines without ``nvcc`` import the package and use
+the plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -41,13 +49,33 @@ def find_nvcc() -> str:
         "CUDA kernels of mloam_tpu_torch cannot be built on this machine")
 
 
+# The host library is loaded into a process that has loaded many other C++
+# libraries (PyTorch's, CUDA's, their JIT compilers') by the time it is first
+# used; it carries its own C++ runtime, hidden from them (static libstdc++ and
+# libgcc, their symbols not exported, its own symbols bound inside it), so no
+# other copy of the runtime or global locale is bound to its iostreams.
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+                  "-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL",
+                  "-Wl,-Bsymbolic"]
+
+
+def find_cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++")):
+        if cand and (os.path.isfile(cand) or shutil.which(cand)):
+            return cand
+    raise RuntimeError(
+        "no host C++ compiler found (looked at $CXX, c++ and g++ on PATH): "
+        "the dataset library of mloam_tpu_torch cannot be built on this machine")
+
+
 def sources() -> list[Path]:
+    """The CUDA kernel sources (``nvcc``)."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _lib_path(src: Path) -> Path:
+def _lib_path(src: Path, flags=NVCC_FLAGS) -> Path:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
@@ -92,6 +120,31 @@ def load(stem: str) -> ctypes.CDLL:
             raise RuntimeError(f"no kernel source csrc/{stem}.cu")
         lib = ctypes.CDLL(str(paths[stem]))
         _libs[stem] = lib
+    return lib
+
+
+def load_host(stem: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<stem>.cpp``, built
+    first with the host C++ compiler if it has no up-to-date library."""
+    key = f"host:{stem}"
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{stem}.cpp"
+    if not src.is_file():
+        raise RuntimeError(f"no host source csrc/{stem}.cpp")
+    path = _lib_path(src, HOST_CXX_FLAGS)
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [find_cxx(), *HOST_CXX_FLAGS, "-o", str(tmp), str(src)]
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"host C++ build failed:\n{' '.join(cmd)}\n{p.stdout}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _libs[key] = lib
     return lib
 
 

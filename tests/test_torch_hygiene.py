@@ -367,3 +367,97 @@ def test_ported_presets_equal_the_reference_presets(name):
     t, j = PRESETS[name](platforms), PRESETS[name](jplatforms)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert type(t.rig.models[0]).__module__.startswith("mloam_tpu_torch")
+
+
+# --------------------------------------------- the deployment layer (host)
+
+def test_the_host_source_is_in_the_package_and_built_apart_from_nvcc():
+    from mloam_tpu_torch.ops import _build
+
+    assert [p.name for p in (PKG / "csrc").glob("*.cpp")] == ["dataset.cpp"]
+    text = (PKG / "csrc" / "dataset.cpp").read_text()
+    assert 'extern "C"' in text and "__global__" not in text and "#include <cuda" not in text
+    assert "-pthread" in _build.HOST_CXX_FLAGS and "-shared" in _build.HOST_CXX_FLAGS
+    assert all(p.suffix == ".cu" for p in _build.sources())
+    assert _build.BUILD_DIR.parent == PKG and _build.CSRC.parent == PKG
+
+
+_FILE_CALLS = {"open", "load", "fromfile", "loadtxt", "CDLL", "LoadLibrary", "join",
+               "Path", "glob", "rglob", "listdir", "exists", "isfile", "read_text",
+               "read_bytes", "run", "Popen"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_opens_or_loads_a_file_of_the_jax_package(path):
+    """No call that opens, loads, lists or builds a path is handed one in
+    the JAX package (a ``file:line`` reference in a report is not such a
+    call), and nothing names the JAX package's native library."""
+    import re
+
+    tree = ast.parse(path.read_text())
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+        if name not in _FILE_CALLS:
+            continue
+        for arg in ast.walk(node):
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str) and (
+                    re.search(r"(^|[/\\])mloam_tpu([/\\]|$)", arg.value)
+                    or arg.value == "native"):
+                bad.append(ast.unparse(node))
+    text = path.read_text()
+    assert not bad and "libmloam_native" not in text and "native/dataset" not in text, bad
+
+
+def test_the_host_build_does_nothing_at_import_and_fails_loudly(monkeypatch, tmp_path):
+    code = textwrap.dedent("""
+        import mloam_tpu_torch.utils.dataio as D
+        from mloam_tpu_torch.ops import _build
+        import mloam_tpu_torch.models.experiments, mloam_tpu_torch.utils.checkpoint
+        assert D._lib is None and not _build._libs
+        print('nothing built')
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env={"PATH": "", "CXX": "/nonexistent"})
+    assert out.returncode == 0 and "nothing built" in out.stdout, out.stderr
+
+    from mloam_tpu_torch.ops import _build
+    from mloam_tpu_torch.utils import dataio
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(dataio, "_lib", None)
+    monkeypatch.setenv("CXX", "false")        # a compiler that always fails
+    with pytest.raises(RuntimeError, match="host C.. build failed"):
+        dataio.library()
+    with pytest.raises(RuntimeError, match="host C.. build failed"):
+        dataio.read_kitti_bin(str(tmp_path / "x.bin"))
+    monkeypatch.delenv("CXX")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no host C.. compiler"):
+        dataio.library()
+    with pytest.raises(RuntimeError, match="no host source"):
+        _build.load_host("absent")
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_experiments_register_no_scaling_program():
+    from mloam_tpu_torch.models import experiments as X
+
+    assert not hasattr(X, "scaling_test") and not hasattr(X, "measure_scaling")
+    with pytest.raises(SystemExit):
+        X.main(["scaling"])
+
+
+def test_the_deployment_entry_points_default_to_the_gpu():
+    if not _no_gpu():
+        pytest.skip("needs a machine without a CUDA device")
+    from mloam_tpu_torch.models import experiments as X
+
+    for call in (lambda: X.measure_single(2), lambda: X.measure_corridor(2),
+                 lambda: X.measure_dynamic(2), lambda: X.run_sequence(platforms.synthetic(), 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
