@@ -98,10 +98,12 @@ def should_insert(pose: Pose, last_kf: Pose, dist_gate: float,
 def surrounding(db: KeyframeDB, center: torch.Tensor, radius: float, m: int):
     """Indices + mask of up to ``m`` keyframes within ``radius`` of
     ``center`` (closest first, ties to the lowest slot as ``lax.top_k``
-    orders them). ``m`` is clamped to the ring capacity."""
-    d2 = torch.sum((db.poses.t - center[None]) ** 2, dim=-1)
+    orders them). ``m`` is clamped to the ring capacity. A ring with
+    leading axes (a sharded one, ``parallel/sharded_map``) is searched per
+    leading index."""
+    d2 = torch.sum((db.poses.t - center) ** 2, dim=-1)
     d2 = torch.where(db.valid, d2, torch.inf)
-    m = min(m, int(d2.shape[0]))
+    m = min(m, int(d2.shape[-1]))
     neg, idx = select.top_k_lowest_index(-d2, m)
     sel_d2 = -neg
     ok = torch.isfinite(sel_d2) & (sel_d2 < radius * radius)

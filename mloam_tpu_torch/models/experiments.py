@@ -7,9 +7,13 @@ ATE), ``mc`` (Monte-Carlo over trials and cells, :95-163), ``inject_ext``
 (the online calibration lifecycle), ``slam`` (odometry + mapping + loop
 closure with every observability artifact), ``corridor`` (degenerate
 geometry, remap armed and disarmed), ``dynamic`` (robust losses under
-moving objects) and ``long`` (endurance), on simulated sequences with the
-in-repo evaluation. The JAX package's ``scaling`` program needs the
-multi-device solvers and is not here yet.
+moving objects), ``long`` (endurance), on simulated sequences with the
+in-repo evaluation, and ``scaling`` (the distributed pose-graph solvers on
+stacked meshes: the nested-dissection step on 1-D and 2-D layouts and the
+edge-sharded PCG, against the dense one-device step; the collectives each
+mesh counts per GN iteration; on the card, the ms of one shard's work and of
+the separator solve). The JAX program's efficiency model (compiled-HLO
+bytes and FLOPs against TPU fabric constants) has no counterpart here.
 
 Usage (the JAX program's arguments and defaults; runs on the GPU):
     python -m mloam_tpu_torch.models.experiments single --frames 40
@@ -17,6 +21,7 @@ Usage (the JAX program's arguments and defaults; runs on the GPU):
     python -m mloam_tpu_torch.models.experiments calib
     python -m mloam_tpu_torch.models.experiments slam --traj loop --frames 260
     python -m mloam_tpu_torch.models.experiments long
+    python -m mloam_tpu_torch.models.experiments scaling --poses 1024
     python -m mloam_tpu_torch.models.experiments plot results_torch/long
 Results land in ``results_torch/<program>/`` (never in ``results/``, the JAX
 package's records): TUM trajectories, summary JSON, PCD maps, and the plots'
@@ -51,6 +56,10 @@ from mloam_tpu_torch.core.rangeimage import RangeImage
 from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.models import platforms, run_synthetic
 from mloam_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+from mloam_tpu_torch.parallel import dd_pgo as DD
+from mloam_tpu_torch.parallel import mesh as M
+from mloam_tpu_torch.parallel import scaling_model as SM
+from mloam_tpu_torch.parallel import sharded_pgo as PG
 from mloam_tpu_torch.sim import world as W
 from mloam_tpu_torch.utils import evaluation, timing, viz
 
@@ -720,6 +729,149 @@ def write_long(res, root: str = OUTDIR) -> str:
     return d
 
 
+# ----------------------------------------------------------------- scaling
+
+def scaling_meshes(device) -> dict:
+    """The JAX program's layouts, as stacked meshes: 8 shards in 1-D, 2 hosts
+    x 4 and 2 hosts x 8."""
+    return {"dd_8dev_1d": M.make_mesh(8, device=device),
+            "dd_8dev_2x4": M.make_multihost_mesh(2, 4, device=device),
+            "dd_16dev_2x8": M.make_multihost_mesh(2, 8, device=device)}
+
+
+def _per_gn(mesh, iters: int) -> dict:
+    return {k: {"calls": v["calls"] / iters, "bytes": v["bytes"] / iters}
+            for k, v in mesh.collectives.items()}
+
+
+def _card_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of ``fn`` (CUDA events around ``reps`` calls after
+    one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def dd_card_ms(poses, edges, mesh) -> dict:
+    """On the card: one GN step of ``optimize_pose_graph_dd`` on ``mesh``
+    (every shard, stacked), one shard's linearization and interior
+    elimination alone (shard 0's inputs), and the separator solve (the
+    damped Cholesky of the reduced system and its solve)."""
+    part = DD.mesh_partition(edges, poses.q.shape[0], mesh)
+    local, ez, _, _ = DD._prepare_device_inputs(part, edges, None, None, mesh)
+    nd = mesh.ndim
+    first = tuple([0] * nd)
+
+    def one(x):
+        return x[first][None] if isinstance(x, torch.Tensor) and x.ndim > nd else x
+
+    shard0 = DD.DDPartition(*(one(x) if f not in ("sep_idx", "sep_mask") else x
+                              for f, x in zip(DD.DDPartition._fields, local)))
+    ez0 = tuple(one(x) for x in ez)
+    # the reduced separator system as the step builds it (the damping and a
+    # strong diagonal stand in for the anchor: a Cholesky's time does not
+    # depend on the values)
+    S, g, sd, *_ = DD.shard_system(poses, local, ez, None, None, nd=nd)
+    dims = tuple(range(nd))
+    Sd = S.sum(dims) + torch.diag_embed(1e-3 * (sd.sum(dims) + 1e-3))
+    Sd = Sd + 1e3 * torch.eye(Sd.shape[-1], device=Sd.device)
+    gred = g.sum(dims)
+
+    def sep_solve():
+        L, _ = torch.linalg.cholesky_ex(Sd)
+        return torch.cholesky_solve(gred[:, None], L)
+
+    return {"step_ms_all_shards": _card_ms(lambda: DD.dd_pgo_step(poses, local, ez, None,
+                                                                    None, mesh)),
+            "shard_ms_per_gn": _card_ms(lambda: DD.shard_system(poses, shard0, ez0, None,
+                                                                 None, nd=1)),
+            "sep_solve_ms_per_gn": _card_ms(sep_solve),
+            "separator_dim": int(Sd.shape[-1])}
+
+
+def measure_scaling(poses: int = 256, device=None) -> dict:
+    """The JAX ``scaling`` program's measured rows on stacked meshes: the
+    nested-dissection solve (8 GN iterations) on each layout of
+    ``scaling_meshes``, its error and its largest deviation from 8 dense
+    one-device steps, gated as the JAX program gates (deviation < 1e-2 m, no
+    worse than dense + 5 mm), and the edge-sharded PCG on 8 shards (< half
+    the initial error); each mesh's collectives per GN iteration; on a GPU
+    the card's ms (``dd_card_ms``, 1-D layout)."""
+    device = resolve_device(device)
+    n_poses = poses
+    poses0, edges, gt = SM.make_survey_graph(n_poses, noise=0.02, device=device)
+    iters = 8
+
+    def err(p):
+        return float(torch.linalg.norm(p.t - gt.t, dim=1).mean())
+
+    err0 = err(poses0)
+    ref = poses0
+    for _ in range(iters):
+        ref, _ = PG.pgo_step(ref, edges)
+    err_ref = err(ref)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    results, collectives = {}, {}
+    meshes = scaling_meshes(device)
+    for name, mesh in meshes.items():
+        out, _ = DD.optimize_pose_graph_dd(poses0, edges, mesh, iters=iters)
+        err1 = err(out)
+        exact = float((out.t - ref.t).abs().max())
+        mesh.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        out, _ = DD.optimize_pose_graph_dd(poses0, edges, mesh, iters=iters)
+        sync()
+        dt = time.perf_counter() - t0
+        results[name] = {"wall_s": dt, "err_m": err1, "max_dev_from_dense_m": exact}
+        collectives[name] = _per_gn(mesh, iters)
+        if not exact < 1e-2:
+            raise AssertionError(f"{name}: DD not exact vs dense ({exact})")
+        # convergence belongs to the graph; the solver must match the dense basin
+        if not err1 < err_ref + 5e-3:
+            raise AssertionError(f"{name}: DD worse than dense ({err1} against {err_ref})")
+        print(f"{name}: exact-vs-dense {exact:.2e} m, err {err0:.3f}->{err1:.3f} m "
+              f"(dense {err_ref:.3f}), wall {dt * 1e3:.0f} ms", flush=True)
+
+    mesh = meshes["dd_8dev_1d"]
+    cg_iters = max(n_poses // 4, 32)
+    mesh.reset_counts()
+    out = PG.optimize_pose_graph(poses0, edges, iters=iters, mesh=mesh, solver="cg",
+                                 cg_iters=cg_iters)
+    err_cg = err(out)
+    results["cg_8dev"] = {"err_m": err_cg, "cg_iters": cg_iters}
+    collectives["cg_8dev"] = _per_gn(mesh, iters)
+    if not err_cg < 0.5 * err0:
+        raise AssertionError(f"cg_8dev: error {err_cg} not under half of {err0}")
+    summary = {
+        "poses": n_poses, "edges": int(edges.i.shape[0]), "gn_iters": iters,
+        "platform": _platform(device),
+        "measured": results,
+        # calls and bytes (one shard's contribution) by collective and axes
+        "collectives_per_gn": collectives,
+        "card_ms": (dd_card_ms(poses0, edges, meshes["dd_8dev_1d"])
+                    if device.type == "cuda" else None),
+        "device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu",
+    }
+    return {"summary": summary}
+
+
+def write_scaling(res, root: str = OUTDIR) -> str:
+    d = _outdir("scaling", root)
+    _write_json(d, "summary.json", res["summary"])
+    return d
+
+
 # -------------------------------------------------------------------- main
 
 def _print(summary, keys):
@@ -729,8 +881,8 @@ def _print(summary, keys):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="program", required=True)
-    for name in ("single", "mc", "calib", "inject_ext", "slam", "long", "corridor",
-                 "dynamic"):
+    for name in ("single", "mc", "calib", "inject_ext", "scaling", "slam", "long",
+                 "corridor", "dynamic"):
         p = sub.add_parser(name)
         # calib needs runway: hand-eye pair accumulation + sigma2 gate
         # (~40 sweeps at wobble 0.25), then n_calib_samples voting sweeps
@@ -740,6 +892,8 @@ def main(argv=None):
         p.add_argument("--lidars", type=int, default=1)
         if name in ("mc", "inject_ext"):
             p.add_argument("--trials", type=int, default=5 if name == "mc" else 3)
+        if name == "scaling":
+            p.add_argument("--poses", type=int, default=256)
         if name == "slam":
             p.add_argument("--traj", choices=("wander", "loop"), default="wander")
         if name in ("slam", "long", "dynamic"):
@@ -778,6 +932,10 @@ def main(argv=None):
         res = measure_calib(a.frames, a.seed, a.lidars)
         write_calib(res)
         print(json.dumps(res["summary"]))
+    elif a.program == "scaling":
+        res = measure_scaling(a.poses)
+        write_scaling(res)
+        print(json.dumps(res["summary"]["measured"]))
     elif a.program == "slam":
         res = measure_slam(a.frames, a.seed, a.lidars, a.traj, a.noise)
         write_slam(res, lidars=a.lidars)

@@ -25,7 +25,9 @@ from mloam_tpu_torch.mapping.keyframes import KeyframeDB
 from mloam_tpu_torch.mapping.mapper import MapperState, SurroundMap
 from mloam_tpu_torch.odometry.estimator import WindowState
 from mloam_tpu_torch.odometry.initializer import MotionBuffer
+from mloam_tpu_torch.parallel.dd_pgo import DDPartition, MapShard, PointFactors
 from mloam_tpu_torch.parallel.sharded_pgo import PoseGraphEdges
+from mloam_tpu_torch.solver.bal import BalProblem
 from mloam_tpu_torch.sim.world import Trajectory, World
 from mloam_tpu_torch.solver.marginalization import QuadPrior
 
@@ -178,6 +180,30 @@ def pose_graph_edges_from_numpy(e, device="cpu") -> PoseGraphEdges:
     i, j, z_q, z_t, weight = tuple(e)
     return PoseGraphEdges(_t(i, device, torch.int64), _t(j, device, torch.int64),
                           _t(z_q, device), _t(z_t, device), _t(weight, device))
+
+
+def point_factors_from_numpy(pf, device="cpu") -> PointFactors:
+    return PointFactors(*(_t(x, device, torch.float32) for x in tuple(pf)))
+
+
+def map_shard_from_numpy(ms, device="cpu") -> MapShard:
+    """``valid`` stays a float mask (the JAX package's dtype)."""
+    return MapShard(*(_t(x, device, torch.float32) for x in tuple(ms)))
+
+
+def bal_problem_from_numpy(prob, device="cpu") -> BalProblem:
+    """Index arrays as int64 (they index cameras, points, observations)."""
+    cams, pts, cam_idx, pt_idx, obs, pair_i, pair_j = tuple(prob)
+    i64 = torch.int64
+    return BalProblem(_t(cams, device), _t(pts, device), _t(cam_idx, device, i64),
+                      _t(pt_idx, device, i64), _t(obs, device),
+                      _t(pair_i, device, i64), _t(pair_j, device, i64))
+
+
+def dd_partition_from_numpy(part) -> DDPartition:
+    """A host partition (numpy arrays and ints, as both packages build it)."""
+    return DDPartition(*(np.array(x) if isinstance(x, np.ndarray) else x
+                         for x in tuple(part)))
 
 
 def world_from_numpy(w, device="cpu") -> World:

@@ -8,7 +8,8 @@ different order). Every program's measurement runs at 8x360 for 3-6 sweeps
 on the CPU, writes into a temporary directory, and its summary has the keys
 of the JAX package's record under ``results/<program>/summary.json``, each
 difference listed in ``DIFFERENCES`` with its reason; its plots' inputs draw
-to PNGs."""
+to PNGs. ``scaling`` runs its solvers at 64 poses on stacked meshes, with
+the JAX program's own gates, and has the record's measured rows."""
 
 import dataclasses
 import json
@@ -107,6 +108,8 @@ PROGRAMS = {
                 {"summary.json", "plots.json", "plots.npz"}),
     "long": ("long", lambda: X.measure_long(4, **KW), X.write_long,
              {"traj_est.tum", "summary.json", "plots.json", "plots.npz"}),
+    "scaling": ("scaling", lambda: X.measure_scaling(64, device="cpu"), X.write_scaling,
+                {"summary.json"}),
 }
 
 # (keys of the record the port's summary lacks, keys it has beyond the record)
@@ -124,6 +127,12 @@ DIFFERENCES = {
     "corridor": (set(), {"mapper"}),
     # likewise the timing note
     "long": (set(), {"timing_note"}),
+    # the JAX program's efficiency model reads compiled HLO against TPU
+    # constants and TPU-measured ms: no counterpart; the port counts its
+    # meshes' collectives and times the card (null on the CPU), and names
+    # the device it ran on
+    "scaling": ({"model", "chip_ms", "model_cg_legacy"},
+                {"collectives_per_gn", "card_ms", "device"}),
 }
 
 
@@ -144,7 +153,8 @@ def test_program_measures_and_writes_with_the_records_keys(name, tmp_path):
     nested = {"mc": lambda x: x["cells"]["single_default"],
               "inject_ext": lambda x: x["gt"],
               "corridor": lambda x: x["remap_on"],
-              "dynamic": lambda x: x["modes"]}
+              "dynamic": lambda x: x["modes"],
+              "scaling": lambda x: x["measured"]}
     if name in nested:
         got, want = set(nested[name](s)), set(nested[name](rec))
         assert got == want | ({"candidate_frames"} if name == "corridor" else set())

@@ -8,7 +8,8 @@ unused loop slots). The same numpy arrays go through ``pgo_step``,
 ``pgo_step_cg``, their 4-DoF forms and ``optimize_pose_graph`` (dense and
 cg) of both packages: poses to 1e-4 (quaternion components and metres),
 costs to 1e-4 relative. Also: the edge residuals and Jacobians, a non-PD
-Hessian giving NaN (no silent regularisation), and ``mesh`` refused.
+Hessian giving NaN (no silent regularisation), and the mesh form equal to
+the one-device solve of the padded edges.
 Costs are held to 1e-3 relative (1e-4 at the first linearization): after a
 few steps they are sums of squares of residuals near f32 noise.
 """
@@ -23,6 +24,7 @@ from mloam_tpu.core.se3 import Pose as JPose
 from mloam_tpu.parallel import sharded_pgo as JPG
 from mloam_tpu_torch.core.se3 import Pose as TPose
 from mloam_tpu_torch.parallel import sharded_pgo as TPG
+from mloam_tpu_torch.parallel.mesh import make_mesh
 from mloam_tpu_torch.utils import convert
 
 N_POSES = 40
@@ -148,6 +150,13 @@ def test_non_pd_hessian_gives_nan_not_a_regularised_step():
 
 
 def test_mesh_is_refused():
+    """The mesh form is no longer refused: edge-sharded over a stacked
+    3-shard mesh it equals the one-device solve to the bit, dense and PCG
+    (the 44 edges are padded to 45 = 3 x 15 either way)."""
     _, _, tp, te = sides(ring_problem())
-    with pytest.raises(NotImplementedError, match="A14"):
-        TPG.optimize_pose_graph(tp, te, mesh=object())
+    mesh = make_mesh(3, device="cpu")
+    for solver in ("dense", "cg"):
+        out = TPG.optimize_pose_graph(tp, te, iters=2, mesh=mesh, solver=solver, cg_iters=30)
+        one = TPG.optimize_pose_graph(tp, TPG.pad_edges(te, 3), iters=2, solver=solver,
+                                      cg_iters=30)
+        assert torch.equal(out.t, one.t) and torch.equal(out.q, one.q)
