@@ -27,6 +27,17 @@ sweeps must make:
 - the presets: 8 sweeps each of Oxford (2x HDL-32, 32x2160), KITTI (HDL-64,
   64x1800) and the Hercules vehicle (4x VLP-16, ESTIMATE_EXTRINSIC 1 as
   shipped), finite poses;
+- the batch frontend path: the steady step of a uniform rig runs one
+  batched frontend (label propagation once for the rig; every rig above and
+  below with one sensor model launches it so, and L times a sweep until the
+  window is full); it is held against the unrolled frontends (one per
+  lidar, what a mixed rig runs) on the dual rig (the rig path's 24 sweeps,
+  ATE < 5 cm), the Hercules rig in mode 0 with its extrinsics installed (10
+  sweeps, batched and unrolled) and Oxford (the preset's 8): poses within
+  1e-5 m, k-NN launches alike, every frontend output of one sweep compared
+  tensor by tensor; each batched label call's inputs held against the plain
+  version at every slot, with a random batch, and timed beside the batch's
+  images as single calls;
 - the map path: ``FullPipeline`` (odometry + uncertainty-aware keyframe
   mapping, the default ``MappingConfig``) on the single VLP-16, 24 sweeps,
   map-frame and odometry ATE < 5 cm, at least 2 keyframes, positive
@@ -62,8 +73,8 @@ sweeps must make:
   that on part of its own noise draws), and the armed run's host waits
   probed (only ``eigh``);
 - the robust path: the JAX package's ``tests/test_robust_e2e.py`` on the
-  port's world, range noise 0.02 m: with three movers (40 sweeps) gm beats
-  huber by 5 % and gnc_gm beats huber; without (20 sweeps) gnc_gm is no
+  port's world, range noise 0.02 m: with three movers (36 sweeps) gm beats
+  huber by 5 % and gnc_gm beats huber; without (16 sweeps) gnc_gm is no
   more than 15 % worse;
 - the silence of the window's (and on the slam floor course the mapper's)
   remap on observed scenes: no direction frozen on the main path and the
@@ -91,9 +102,9 @@ sweeps must make:
   into fresh pipelines: state equal to the bit, the loop graph's keyframe
   count kept, the next sweep on the first-sweep branch and finite; file
   sizes and save / load seconds recorded;
-- the experiments path: the programs ``single`` (24 sweeps), ``mc`` (one
-  trial of 24 sweeps in each of its four cells) and ``inject_ext`` (levels
-  gt and inj, 14 sweeps of the dual rig) at full width, ATE < 5 cm (inject
+- the experiments path: the programs ``single`` (16 sweeps), ``mc`` (one
+  trial of 16 sweeps in each of its four cells) and ``inject_ext`` (levels
+  gt and inj, 10 sweeps of the dual rig) at full width, ATE < 5 cm (inject
   at gt), written (TUM, JSON, PCD and the plots' inputs);
 - the parallel path (the distributed solvers on stacked meshes, no kernel
   launched): the ``scaling`` program at 1024 poses (the nested-dissection
@@ -202,6 +213,8 @@ CALIB_FRAMES = 64
 CALIB_ROT_GATE_RAD = 5e-3
 CALIB_POS_GATE_M = 0.02
 PRESET_FRAMES = 8
+BATCH_HERCULES_FRAMES = 10  # the four-lidar rig, unrolled and batched
+BATCH_POSE_GATE_M = 1e-5    # tests/test_odometry_e2e.py:131
 MAP_FRAMES = 24
 MAP_RIG_FRAMES = 14
 TUNED_FRAMES = 24
@@ -235,8 +248,8 @@ CORRIDOR_PROBE_FROM = 30
 JAX_CORRIDOR_EZ_ON_M = 0.7555999755859375
 CORRIDOR_EZ_MARGIN_M = 0.26
 # the robust-loss course (tests/test_robust_e2e.py:25-92): three movers
-ROBUST_FRAMES = 40          # cut from 50 / 24 for the whole script's time,
-ROBUST_CLEAN_FRAMES = 20    # every gate kept
+ROBUST_FRAMES = 36          # cut from 50 / 24 for the whole script's time,
+ROBUST_CLEAN_FRAMES = 16    # every gate kept
 ROBUST_MOVERS = ([[5.0, 2.0, 0.6], [-3.0, 6.0, 0.6], [7.0, -4.0, 0.5]],
                  [[0.0, 2.5]] * 3,
                  [[-1.2, -0.5], [0.8, -1.4], [-0.6, 1.3]])
@@ -254,8 +267,8 @@ GATED_FRAMES = 40           # a live 10 Hz stream through the realtime gate
 GATED_MAX_LAG_S = 0.2
 RESUME_FRAMES = 9           # tests/test_checkpoint.py:18-45
 RESUME_SLAM_FRAMES = 12     # tests/test_checkpoint.py:58-100
-EXP_FRAMES = 24             # experiments single, and mc's four cells
-EXP_INJECT_FRAMES = 14      # experiments inject_ext on the dual rig
+EXP_FRAMES = 16             # experiments single, and mc's four cells
+EXP_INJECT_FRAMES = 10      # experiments inject_ext on the dual rig
 MAP_RIG_EXT_COV = (1e-4, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
 # the distributed slice (parallel_path): the JAX scaling program's graph,
 # the deployment shape of its distributed BA (scaling_model.py:294-296),
@@ -478,8 +491,10 @@ def check_labels(name, case, rounds_list=(3, 8)):
     return out
 
 
-def label_bound_ms(r, c, rounds):
-    cells = r * c
+def label_bound_ms(shape, rounds):
+    """The least time for an image [R, C] or a batch [B, R, C]: the labels
+    and both connection bytes read once, the labels written once."""
+    cells = math.prod(shape)
     t_bytes = cells * (4 + 1 + 1 + 4) / PEAK_BYTES_S
     t_ops = cells * rounds * LABEL_OPS_PER_CELL_ROUND / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -652,7 +667,8 @@ def mapper_scale_case():
 def capture_main_path_inputs(cfg, extrinsics=None):
     """Run the pipeline until the window is warm and record, on the first
     steady sweep, the tensors the path hands to each kernel: the tracker's
-    two k-NN calls, the window's two, and one label call per lidar."""
+    two k-NN calls, the window's two, and one label call per lidar (one for
+    a uniform rig's batch)."""
     n = cfg.odometry.window_size + 2
     L = cfg.rig.n_lidars
     seqs, _ = run_synthetic.render_rig(cfg, n, seed=1, extrinsics=extrinsics,
@@ -680,9 +696,10 @@ def capture_main_path_inputs(cfg, extrinsics=None):
         finally:
             hopper_knn.knn, hopper_labels.propagate_labels = real_knn, real_labels
     torch.cuda.synchronize()
-    if len(knn_calls) != 4 or len(label_calls) != L:
+    want_labels = 1 if uniform_rig(cfg) else L
+    if len(knn_calls) != 4 or len(label_calls) != want_labels:
         fail(f"steady sweep of {L} lidar(s) made {len(knn_calls)} k-NN and "
-             f"{len(label_calls)} label calls; expected 4 and {L}")
+             f"{len(label_calls)} label calls; expected 4 and {want_labels}")
     last_img = RangeImage(*(f[n - 1] for f in seqs[0]))
     return knn_calls, label_calls[0], last_img
 
@@ -744,13 +761,13 @@ def label_timing(name, case, rounds):
              "launches; the design is one")
     ms = time_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, rounds))
     g_ms = graph_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, rounds))
-    bound, by = label_bound_ms(lab.shape[0], lab.shape[1], rounds)
+    bound, by = label_bound_ms(lab.shape, rounds)
     # the slope over rounds is the cost of one round; what is left at 0, the
     # launch and the image's one read and write
     by_rounds = {n: graph_ms(lambda: hopper_labels.propagate_labels(lab, ch, cv, n))
                  for n in (1, 2, 8)}
     return {"name": name, "shape": list(lab.shape), "rounds": rounds,
-            "smem_bytes_per_block": hopper_labels.smem_bytes(*lab.shape),
+            "smem_bytes_per_block": hopper_labels.smem_bytes(*lab.shape[-2:]),
             "launches_per_call": per_call, "ms": ms, "graph_ms": g_ms,
             "plain_ms": time_ms(lambda: hopper_labels.propagate_labels_plain(lab, ch, cv, rounds), reps=5),
             "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
@@ -860,6 +877,27 @@ def expected_knn(modes, n_lidars, window_size, first_mode, skip_steady=False):
                for i, b in enumerate(befores))
 
 
+def uniform_rig(cfg):
+    """A rig whose steady sweeps run one batched frontend: L > 1 lidars of
+    one sensor model."""
+    models = cfg.rig.models
+    return len(models) > 1 and all(m == models[0] for m in models)
+
+
+def labels_per_sweep(i, mode_before, cfg):
+    """K1 launches of sweep ``i`` that started in ``mode_before``: one per
+    lidar, but one for a uniform rig's batch on a steady sweep (mode 0,
+    window full)."""
+    steady = mode_before == 0 and i >= cfg.odometry.window_size
+    return 1 if steady and uniform_rig(cfg) else cfg.rig.n_lidars
+
+
+def expected_labels(modes, cfg, first_mode):
+    """K1 launches over a run whose sweeps ended in ``modes``."""
+    befores = [first_mode] + list(modes[:-1])
+    return sum(labels_per_sweep(i, b, cfg) for i, b in enumerate(befores))
+
+
 def zero_counters():
     hopper_labels.launches = 0
     hopper_knn.launches = 0
@@ -940,7 +978,8 @@ def phase_main_path(cfg):
 
 
 def phase_rig_path(cfg, rig_window_shapes):
-    """The dual rig with its extrinsics installed (mode 0)."""
+    """The dual rig with its extrinsics installed (mode 0): its steady
+    sweeps run the batched frontend."""
     L = cfg.rig.n_lidars
     zero_counters()
     res = run_synthetic.run(n_frames=N_FRAMES, seed=0, verbose=False, device=DEV,
@@ -948,7 +987,7 @@ def phase_rig_path(cfg, rig_window_shapes):
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
     if set(res["modes"]) != {0}:
         fail(f"rig path: left mode 0: {res['modes']}")
-    check_counters("rig path", n_labels, n_knn, L * N_FRAMES,
+    check_counters("rig path", n_labels, n_knn, expected_labels(res["modes"], cfg, 0),
                    expected_knn(res["modes"], L, cfg.odometry.window_size, 0))
     path_m = check_trajectory("rig path", res, N_FRAMES)
     emit({"rig_path": {
@@ -959,7 +998,7 @@ def phase_rig_path(cfg, rig_window_shapes):
                               for s in rig_window_shapes],
         "width": width(cfg),
     }})
-    return {"propagate_labels": n_labels, "knn": n_knn}
+    return {"propagate_labels": n_labels, "knn": n_knn}, res
 
 
 def phase_calib_path(cfg):
@@ -985,10 +1024,10 @@ def phase_calib_path(cfg):
         before = seen["before"]
         d_l = hopper_labels.launches - seen["labels"]
         d_k = hopper_knn.launches - seen["knn"]
-        want_k = knn_per_sweep(i, before, L, ws)
-        if d_l != L or d_k != want_k:
+        want_l, want_k = labels_per_sweep(i, before, cfg), knn_per_sweep(i, before, L, ws)
+        if d_l != want_l or d_k != want_k:
             fail(f"calibration path, sweep {i} (started in mode {before}): "
-                 f"labels {d_l} (expected {L}), knn {d_k} (expected {want_k})")
+                 f"labels {d_l} (expected {want_l}), knn {d_k} (expected {want_k})")
         rec = per_mode[before]
         rec["sweeps"] += 1
         rec["propagate_labels"] += d_l
@@ -1013,7 +1052,7 @@ def phase_calib_path(cfg):
         hopper_knn.knn = real_knn
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
     modes = res["modes"]
-    check_counters("calibration path", n_labels, n_knn, L * CALIB_FRAMES,
+    check_counters("calibration path", n_labels, n_knn, expected_labels(modes, cfg, 2),
                    expected_knn(modes, L, ws, 2))
     check_trajectory("calibration path", res, CALIB_FRAMES, gate=False)
     for before, dt in zip([2] + modes[:-1], res["sweep_ms"]):
@@ -1075,23 +1114,26 @@ def calib_knn_checks(captured, L):
 
 def phase_presets():
     """A few sweeps of three shipped presets at their own sensor shapes. The
-    first label-propagation call at each shape is kept, to be held against
-    the plain version after the run."""
-    captured = {}
+    first label-propagation call at each shape (a uniform rig's batch too) is
+    kept, to be held against the plain version after the run, and the calls
+    are counted by shape."""
+    captured, calls = {}, collections.Counter()
     real_labels = hopper_labels.propagate_labels
 
     def rec_labels(labels, ch, cv, rounds=3):
         shape = tuple(labels.shape)
+        calls[shape] += 1
         if shape not in captured:
             captured[shape] = (labels.clone(), ch.clone(), cv.clone(), rounds)
         return real_labels(labels, ch, cv, rounds)
 
-    runs, counts, by_shape = {}, {}, {}
+    runs, counts, by_shape, results = {}, {}, {}, {}
     for name, cfg, ext in (("oxford", platforms.oxford(), RIG_X),
                            ("kitti", platforms.kitti(), None),
                            ("vehicle_hercules", platforms.vehicle_hercules(), HERCULES_X)):
         L = cfg.rig.n_lidars
         zero_counters()
+        calls.clear()
         hopper_labels.propagate_labels = rec_labels
         try:
             res = run_synthetic.run(n_frames=PRESET_FRAMES, seed=2, verbose=False,
@@ -1100,20 +1142,177 @@ def phase_presets():
             hopper_labels.propagate_labels = real_labels
         n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
         mode = cfg.rig.extrinsic_mode if L > 1 else 0
-        check_counters(name, n_labels, n_knn, L * PRESET_FRAMES,
+        check_counters(name, n_labels, n_knn, expected_labels(res["modes"], cfg, mode),
                        expected_knn(res["modes"], L, cfg.odometry.window_size, mode))
+        if sum(calls.values()) != n_labels:
+            fail(f"{name}: {sum(calls.values())} label calls for {n_labels} launches")
         check_trajectory(name, res, PRESET_FRAMES, gate=False)
         counts[name] = {"propagate_labels": n_labels, "knn": n_knn}
-        for shape in {(m.n_rings, m.n_cols) for m in cfg.rig.models}:
-            # each preset's lidars share one sensor model
-            by_shape[shape] = by_shape.get(shape, 0) + n_labels
+        for shape, n in calls.items():
+            by_shape[shape] = by_shape.get(shape, 0) + n
+        results[name] = res
         runs[name] = {"frames": PRESET_FRAMES, "lidars": L,
                       "modes": "".join(str(m) for m in res["modes"]),
                       "ate_m": res["ate_m"],
                       "steady_ms_median": res["steady_ms_median"],
                       "launches": counts[name], "width": width(cfg)}
     emit({"presets": runs})
-    return counts, captured, by_shape
+    return counts, captured, by_shape, results
+
+
+# --------------------------------------------------------------------------
+# the batched frontend of a uniform rig, against the unrolled frontends
+# --------------------------------------------------------------------------
+
+def run_unrolled(**kw):
+    """``run_synthetic.run`` with the pipeline held, from its first sweep
+    on (before any steady one), to one frontend per lidar, what a rig of
+    mixed sensor models runs: the reference the batched frontend is held
+    to."""
+    def unroll(i, out, pipe):
+        pipe._uniform_rig = False
+    return run_synthetic.run(on_sweep=unroll, **kw)
+
+
+def _leaves(tree, path=""):
+    """(name, tensor) of every tensor of a nested named tuple."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+        return
+    names = getattr(tree, "_fields", range(len(tree)))
+    for name, x in zip(names, tree):
+        yield from _leaves(x, f"{path}.{name}" if path else str(name))
+
+
+def frontend_difference(cfg, extrinsics, seed):
+    """The batched frontend against the unrolled one on the first sweep of
+    the rig's sequence: the largest absolute difference over every output
+    tensor, the number that differ and the first that differs."""
+    seqs, _ = run_synthetic.render_rig(cfg, 1, seed=seed, extrinsics=extrinsics, device=DEV)
+    frames = [RangeImage(*(f[0] for f in imgs)) for imgs in seqs]
+    pipe = OdometryPipeline(cfg, device=DEV)
+    unrolled = pipe._frontends(frames)
+    batched = pipe._frontends(frames, batched=True)
+    worst, n_diff, first, n = 0.0, 0, None, 0
+    for kind, u_l, b_l in zip(("features", "corner", "surf", "outlier"), unrolled, batched):
+        for l, (u, b) in enumerate(zip(u_l, b_l)):
+            for (name, x), (_, y) in zip(_leaves(u), _leaves(b)):
+                n += 1
+                if x.shape != y.shape or x.dtype != y.dtype:
+                    fail(f"batch_fe_path: lidar {l} {kind}.{name}: shape or type differs")
+                if not torch.equal(x, y):
+                    n_diff += 1
+                    first = first or f"lidar {l} {kind}.{name}"
+                    worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return {"tensors": n, "tensors_differing": n_diff, "max_abs_diff": worst,
+            "first_differing": first}
+
+
+def batched_label_timing(name, case, rounds):
+    """``label_timing`` of a batch, beside its B images as B single calls
+    (``graph_ms``: the launches back to back)."""
+    lab, ch, cv = case
+    out = label_timing(name, case, rounds)
+
+    def singles():
+        for i in range(lab.shape[0]):
+            hopper_labels.propagate_labels(lab[i], ch[i], cv[i], rounds)
+    out["graph_ms_single_calls"] = graph_ms(singles)
+    out["ms_single_calls"] = time_ms(singles)
+    return out
+
+
+def phase_batch_fe_path(rig_cfg, rig_res, oxford_res):
+    """The steady step's batched frontend against the unrolled one: the dual
+    rig (the rig path's run) and Oxford (the preset run) against unrolled
+    runs of their own; the four-lidar Hercules rig (mode 0, its extrinsics
+    installed) batched and unrolled. Poses within 1e-5 m of the unrolled,
+    which launches K1 once per lidar every sweep; k-NN launches alike. Each
+    rig's frontend is also compared tensor by tensor on one sweep. The
+    batched label calls' inputs (from the Hercules run and the frontend
+    comparisons) are kept and held against the plain version at every
+    slot."""
+    captured = {}
+    real_labels = hopper_labels.propagate_labels
+
+    def rec_labels(labels, ch, cv, rounds=3):
+        if labels.ndim == 3 and tuple(labels.shape) not in captured:
+            captured[tuple(labels.shape)] = (labels.clone(), ch.clone(), cv.clone(), rounds)
+        return real_labels(labels, ch, cv, rounds)
+
+    runs, counts, steady_calls = {}, {"propagate_labels": 0, "knn": 0}, {}
+    for name, cfg, ext, n, seed, batched in (
+            ("dual", rig_cfg, RIG_X, N_FRAMES, 0, rig_res),
+            ("hercules", platforms.vehicle_hercules(extrinsic_mode=0), HERCULES_X,
+             BATCH_HERCULES_FRAMES, 0, None),
+            ("oxford", platforms.oxford(), RIG_X, PRESET_FRAMES, 2, oxford_res)):
+        L, ws = cfg.rig.n_lidars, cfg.odometry.window_size
+        if not uniform_rig(cfg):
+            fail(f"batch_fe_path, {name}: the rig is not uniform")
+        kw = dict(n_frames=n, seed=seed, verbose=False, device=DEV, cfg=cfg, extrinsics=ext)
+        launches = {}
+        if batched is None:
+            zero_counters()
+            hopper_labels.propagate_labels = rec_labels
+            try:
+                batched = run_synthetic.run(**kw)
+            finally:
+                hopper_labels.propagate_labels = real_labels
+            check_counters(f"batch_fe_path, {name}", hopper_labels.launches,
+                           hopper_knn.launches, expected_labels(batched["modes"], cfg, 0),
+                           expected_knn(batched["modes"], L, ws, 0))
+            launches["batched"] = {"propagate_labels": hopper_labels.launches,
+                                   "knn": hopper_knn.launches}
+        zero_counters()
+        ref = run_unrolled(**kw)
+        n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
+        for res in (batched, ref):
+            if set(res["modes"]) != {0}:
+                fail(f"batch_fe_path, {name}: left mode 0: {res['modes']}")
+        # one launch per lidar on every sweep
+        check_counters(f"batch_fe_path, {name} unrolled", n_labels, n_knn, L * n,
+                       expected_knn(ref["modes"], L, ws, 0))
+        launches["unrolled"] = {"propagate_labels": n_labels, "knn": n_knn}
+        for x in launches.values():
+            counts["propagate_labels"] += x["propagate_labels"]
+            counts["knn"] += x["knn"]
+        steady_calls[(L,) + (cfg.rig.models[0].n_rings, cfg.rig.models[0].n_cols)] = n - ws
+        check_trajectory(f"batch_fe_path, {name}", batched, n, gate=name == "dual")
+        dt = float(np.abs(batched["est_t"] - ref["est_t"]).max())
+        dq = float(np.abs(batched["est_q"] - ref["est_q"]).max())
+        hopper_labels.propagate_labels = rec_labels
+        try:
+            frontend = frontend_difference(cfg, ext, seed)
+        finally:
+            hopper_labels.propagate_labels = real_labels
+        runs[name] = {
+            "frames": n, "lidars": L, "steady_sweeps": n - ws,
+            "ate_m": batched["ate_m"], "ate_m_unrolled": ref["ate_m"],
+            "max_abs_pose_t_diff_m": dt, "max_abs_pose_q_diff": dq,
+            "steady_ms_median": batched["steady_ms_median"],
+            "steady_ms_median_unrolled": ref["steady_ms_median"],
+            "launches": launches, "frontend": frontend, "width": width(cfg)}
+        if not dt <= BATCH_POSE_GATE_M:
+            fail(f"batch_fe_path, {name}: poses {dt} m from the unrolled run "
+                 f"(gate {BATCH_POSE_GATE_M} m)")
+    emit({"batch_fe_path": runs})
+
+    # K1 over each captured batch, and a random one, against the plain
+    # version at every slot; timed beside B single calls
+    cases = {f"batch_fe_{'x'.join(map(str, k))}": v for k, v in sorted(captured.items())}
+    if set(captured) != set(steady_calls):
+        fail(f"batch_fe_path: batched label calls at {sorted(captured)}, expected "
+             f"{sorted(steady_calls)}")
+    rand = [random_label_case(16, 1800, 100 + i) for i in range(3)]
+    cases["random_3x16x1800"] = tuple(torch.stack(x) for x in zip(*rand)) + (3,)
+    checks, timings = [], []
+    for name, (lab, ch, cv, rounds) in cases.items():
+        checks += check_labels(name, (lab, ch, cv), (rounds,))
+        t = batched_label_timing(name, (lab, ch, cv), rounds)
+        t["launches"] = steady_calls.get(tuple(lab.shape), 0)
+        timings.append(t)
+    emit({"kernel_checks": {"labels_batched": checks}})
+    return counts, {"max_abs_err": max(c["max_abs_err"] for c in checks), "shapes": timings}
 
 
 # --------------------------------------------------------------------------
@@ -1151,12 +1350,12 @@ def phase_map_path(name, cfg, n_frames, extrinsics=None):
         d_l = hopper_labels.launches - seen["labels"]
         d_k = hopper_knn.launches - seen["knn"]
         d_r = MP.stale_reads - seen["reads"]
-        want_k = knn_per_sweep(i, 0, L, ws)
+        want_l, want_k = labels_per_sweep(i, 0, cfg), knn_per_sweep(i, 0, L, ws)
         if out.mapped:
             want_k += 2 * mc.outer_iters if seen["mapped"] > 0 else 0
             seen["mapped"] += 1
-        if d_l != L or d_k != want_k or d_r != int(out.mapped):
-            fail(f"{name}, sweep {i}: labels {d_l} (expected {L}), knn {d_k} "
+        if d_l != want_l or d_k != want_k or d_r != int(out.mapped):
+            fail(f"{name}, sweep {i}: labels {d_l} (expected {want_l}), knn {d_k} "
                  f"(expected {want_k}), staleness reads {d_r} "
                  f"(expected {int(out.mapped)})")
         rebuilt = len(timing._registry.get("map_step_rebuild", [])) > seen["rebuilds"]
@@ -1187,7 +1386,7 @@ def phase_map_path(name, cfg, n_frames, extrinsics=None):
     n_reads = MP.stale_reads - reads0
     mapped = res["mapped"]
     n_mapped = sum(mapped)
-    check_counters(name, n_labels, n_knn, L * n_frames,
+    check_counters(name, n_labels, n_knn, expected_labels(res["modes"], cfg, 0),
                    expected_knn(res["modes"], L, ws, 0)
                    + 2 * mc.outer_iters * max(n_mapped - 1, 0))
     if n_reads != n_mapped:
@@ -1354,7 +1553,8 @@ def phase_tuned_path(name, cfg, n_frames, extrinsics=None):
             captured.append((labels.clone(), ch.clone(), cv.clone(), rounds))
         return real_labels(labels, ch, cv, rounds)
 
-    counter = SweepCounter(name, lambda i, out, pipe: (L, knn_per_sweep(i, 0, L, ws)))
+    counter = SweepCounter(name, lambda i, out, pipe: (labels_per_sweep(i, 0, cfg),
+                                                       knn_per_sweep(i, 0, L, ws)))
 
     def on_sweep(i, out, pipe):
         counter(i, out, pipe)
@@ -1367,7 +1567,7 @@ def phase_tuned_path(name, cfg, n_frames, extrinsics=None):
     finally:
         hopper_labels.propagate_labels = real_labels
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
-    check_counters(name, n_labels, n_knn, L * n_frames,
+    check_counters(name, n_labels, n_knn, expected_labels(res["modes"], cfg, 0),
                    expected_knn(res["modes"], L, ws, 0))
     path_m = check_trajectory(name, res, n_frames)
     oc = cfg.odometry
@@ -1456,7 +1656,7 @@ class SyncProbe:
 def phase_slam_path(name, course_name, base_cfg, probe_from=0, gate_loops=True):
     """``SlamPipeline`` through ``run_synthetic.run(slam=True)`` on the loop
     course ``course_name`` built on ``base_cfg``. After every
-    sweep: K1 once per lidar; K2 the odometry's, the mapper's (2 per outer
+    sweep: K1 once per lidar (``labels_per_sweep``); K2 the odometry's, the mapper's (2 per outer
     iteration on mapped sweeps once the map holds a keyframe) and 12 per
     detection submitted in the sweep (two fine registrations of three outer
     iterations, an edge and a plane call each). The 12 k-NN inputs of the
@@ -1534,7 +1734,7 @@ def phase_slam_path(name, course_name, base_cfg, probe_from=0, gate_loops=True):
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
     n_mapped = sum(res["mapped"])
     # the end-of-run flush may submit one more detection after the last sweep
-    check_counters(name, n_labels, n_knn, L * n_frames,
+    check_counters(name, n_labels, n_knn, expected_labels(res["modes"], cfg, 0),
                    expected_knn(res["modes"], L, ws, 0)
                    + 2 * mc.outer_iters * max(n_mapped - 1, 0)
                    + per_detect * pipe.n_detections)
@@ -1822,7 +2022,7 @@ def corridor_kernel_checks(captured):
 def phase_robust_path():
     """tests/test_robust_e2e.py:25-92 on the port's world of seed 0 and
     trajectory of seed 1 (wobble 0.05), range noise 0.02 m: with three
-    movers (40 sweeps) huber, gm and gnc_gm (c 0.12); without (20 sweeps)
+    movers (36 sweeps) huber, gm and gnc_gm (c 0.12); without (16 sweeps)
     huber and gnc_gm."""
     base = platforms.synthetic(n_lidars=1)
     model = base.rig.models[0]
@@ -2310,7 +2510,8 @@ def phase_parallel_path(tmp, ladder):
 
 class FullSweepCheck:
     """While active, every ``FullPipeline.process`` call (a ``SlamPipeline``'s
-    too) has its launch counters checked: K1 once per lidar; K2 none on a
+    too) has its launch counters checked: K1 once per lidar, once for a
+    uniform rig's batch on a steady sweep; K2 none on a
     first-sweep branch (a fresh or a restored pipeline), else the odometry's
     (``knn_per_sweep``), plus 2 per outer iteration on a mapped sweep whose
     mapper already held a map. The checks are made on the counts the call
@@ -2327,19 +2528,21 @@ class FullSweepCheck:
         def process(pipe, imgs):
             cfg = pipe.cfg
             i, first = pipe.odom.frame_idx, pipe.odom.prev_feats[0] is None
+            mode = pipe.odom.ext_mode
             had_map = pipe.mapper_state.step > 0
             l0, k0 = hopper_labels.launches, hopper_knn.launches
             out = real(pipe, imgs)
-            want_k = 0 if first else knn_per_sweep(i, 0, cfg.rig.n_lidars,
+            want_k = 0 if first else knn_per_sweep(i, mode, cfg.rig.n_lidars,
                                                    cfg.odometry.window_size)
+            want_l = cfg.rig.n_lidars if first else labels_per_sweep(i, mode, cfg)
             if out.mapped and had_map:
                 want_k += 2 * cfg.mapping.outer_iters
             d_l, d_k = hopper_labels.launches - l0, hopper_knn.launches - k0
-            if (d_l, d_k) != (cfg.rig.n_lidars, want_k):
+            if (d_l, d_k) != (want_l, want_k):
                 fail(f"{check.name}, sweep {i}: labels {d_l} (expected "
-                     f"{cfg.rig.n_lidars}), knn {d_k} (expected {want_k})")
+                     f"{want_l}), knn {d_k} (expected {want_k})")
             check.sweeps += 1
-            check.labels += cfg.rig.n_lidars
+            check.labels += want_l
             check.knn += want_k
             return out
 
@@ -2671,10 +2874,10 @@ def phase_resume_path(cfg, tmp):
 
 def phase_experiments_path(tmp):
     """The experiment programs' measurements at full width, their launch
-    counters checked on every sweep: ``single`` (24 sweeps, ATE < 5 cm; its
-    keyframe map exported as PCD), ``mc`` (one trial of 24 sweeps in each of
+    counters checked on every sweep: ``single`` (16 sweeps, ATE < 5 cm; its
+    keyframe map exported as PCD), ``mc`` (one trial of 16 sweeps in each of
     its four cells, each ATE < 5 cm) and ``inject_ext`` at levels gt and inj,
-    ua off and on, one trial of 14 sweeps of the dual rig (at gt, ATE
+    ua off and on, one trial of 10 sweeps of the dual rig (at gt, ATE
     < 5 cm). Each is written (TUM, JSON, PCD and the plots' inputs; the PNGs
     are drawn elsewhere by ``experiments plot``: matplotlib is not needed
     here)."""
@@ -2750,14 +2953,18 @@ def main():
     lap("kernels")
     by_path = {"main_path": phase_main_path(cfg)}
     rig_window = [s for s in k2["main_path_shapes"] if s["name"].startswith("rig_")]
-    by_path["rig_path"] = phase_rig_path(rig_cfg, rig_window)
+    by_path["rig_path"], rig_res = phase_rig_path(rig_cfg, rig_window)
     lap("main_and_rig_paths")
     by_path["calib_path"], calib_captured = phase_calib_path(
         platforms.synthetic(n_lidars=2, extrinsic_mode=2))
     lap("calib_path")
-    preset_counts, captured, by_shape = phase_presets()
+    preset_counts, captured, by_shape, preset_res = phase_presets()
     by_path.update(preset_counts)
     lap("presets")
+    by_path["batch_fe_path"], k1["batched"] = phase_batch_fe_path(
+        rig_cfg, rig_res, preset_res["oxford"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1["batched"]["max_abs_err"])
+    lap("batch_fe_path")
     by_path["map_path"], map_captured = phase_map_path("map_path", cfg, MAP_FRAMES)
     map_rig_cfg = dataclasses.replace(rig_cfg, mapping=dataclasses.replace(
         rig_cfg.mapping, ext_cov_prior_diag=MAP_RIG_EXT_COV))
@@ -2782,8 +2989,8 @@ def main():
     # K1 at the presets' shapes, on the inputs those paths gave it
     preset_checks = []
     for shape, (lab, ch, cv, rounds) in sorted(captured.items()):
-        preset_checks += check_labels(f"presets_{shape[0]}x{shape[1]}", (lab, ch, cv),
-                                      (rounds,))
+        preset_checks += check_labels(f"presets_{'x'.join(map(str, shape))}",
+                                      (lab, ch, cv), (rounds,))
     emit({"kernel_checks": {"labels_presets": preset_checks}})
     k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in preset_checks])
     for other in k1["other_shapes"]:

@@ -53,8 +53,8 @@ def hdl64_ring_table() -> tuple:
     return tuple(reversed(upper + lower))
 
 
-def _col_time(r: int, c: int, dtype, device) -> torch.Tensor:
-    return (torch.arange(c, dtype=dtype, device=device) / c).expand(r, c)
+def _col_time(r: int, c: int, dtype, device, lead=()) -> torch.Tensor:
+    return (torch.arange(c, dtype=dtype, device=device) / c).expand(*lead, r, c)
 
 
 def _deg2rad(deg, dtype, device) -> torch.Tensor:
@@ -204,18 +204,19 @@ def _wire_to_device(a, device) -> torch.Tensor:
 def unpack_frame(pf: PackedFrame, rays: torch.Tensor,
                  model: LidarModel) -> RangeImage:
     """Wire format -> RangeImage, on the device of ``rays`` (the [R, C, 3]
-    unit ray table)."""
+    unit ray table). Fields [R, C], or [L, R, C] for the sweeps of L lidars
+    that share ``model`` and its ray table: each image unpacked as alone."""
     device = rays.device
     rq = _wire_to_device(pf.rng_q, device)
     rng = rq.to(torch.float32) * RANGE_QUANTUM
     valid = (rq > 0) & (rng > model.min_range) & (rng < model.max_range)
     xyz = torch.where(valid[..., None], rng[..., None] * rays, 0.0)
-    r, c = valid.shape
+    *lead, r, c = valid.shape
     return RangeImage(
         xyz=xyz,
         rng=torch.where(valid, rng, 0.0),
         valid=valid,
-        time=_col_time(r, c, torch.float32, device),
+        time=_col_time(r, c, torch.float32, device, lead),
         intensity=_wire_to_device(pf.intensity_q, device).to(torch.float32) / 255.0,
     )
 

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel mloam_tpu/ops/pallas_labels.py:_label_kernel
 // (entry propagate_labels_pallas). Same contract: labels int32 [R, C] in
-// linear-pixel-index space (non-clusterable = R*C); conn_h[r, c] says column
+// linear-pixel-index space (non-clusterable = R*C), or a batch [N, R, C] of
+// such images, each in its own index space (the kernel under jax.vmap, as
+// the JAX package's batched rig frontend runs it); conn_h[r, c] says column
 // c is connected to column c-1, with conn_h[r, 0] carrying the azimuth wrap
 // flag (C-1 <-> 0); conn_v[r, c] says row r is connected to row r-1. Each
 // round is {row segmented-min, seam stitch, row segmented-min, column
@@ -17,12 +19,14 @@
 // the column scan): 6 launches for 3 rounds, ~0.058 ms, ~45 us of host time
 // each. The TPU kernel is one dispatch.
 //
-// This design is one launch for all rounds: a thread-block cluster of
-// B = min(R, 8) blocks (a portable cluster size), launched with
-// cudaLaunchKernelEx. Block b holds rows [b*ceil(R/B), (b+1)*ceil(R/B)) in
-// shared memory for the whole call (labels int32, conn_h and conn_v bytes,
-// run starts int16), so the image is read from device memory once and
-// written once.
+// This design is one launch for all rounds and all images: a thread-block
+// cluster of B = min(R, 8) blocks (a portable cluster size) per image, the
+// images along the grid's y axis (a grid of B x N blocks), launched with
+// cudaLaunchKernelEx. The clusters share nothing: the cluster at
+// blockIdx.y labels image blockIdx.y. Block b of a cluster holds rows
+// [b*ceil(R/B), (b+1)*ceil(R/B)) of its image in shared memory for the whole
+// call (labels int32, conn_h and conn_v bytes, run starts int16), so each
+// image is read from device memory once and written once.
 //  * Row phases on shared memory, all rows of the block at once: the block's
 //    rows are one flat array whose run starts (column 0 or conn_h == 0) are
 //    a max-scan computed once per call. A segmented min folds each thread's
@@ -54,6 +58,7 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use on sm_90
+constexpr int kMaxImages = 65535;  // the grid's y extent
 constexpr int kHasBoundary = 1;  // a run boundary inside the block's rows
 constexpr int kLinkedUp = 2;     // the block's first row joins the row above
 
@@ -138,7 +143,8 @@ label_kernel(const int* __restrict__ labels, const unsigned char* __restrict__ c
   const int row0 = b * L.rows;
   const int nrows = max(0, min(L.rows, R - row0));  // the last blocks may hold fewer, or none
   const int n = nrows * C;
-  const size_t g0 = (size_t)row0 * C;
+  // this image's first cell in the batch, then the block's first row in it
+  const size_t g0 = (size_t)blockIdx.y * R * C + (size_t)row0 * C;
   for (int i = t; i < n; i += kThreads) {
     lab[i] = labels[g0 + i];
     ch[i] = conn_h[g0 + i];
@@ -273,16 +279,19 @@ extern "C" long long mloam_labels_smem_bytes(int R, int C) {
   return (long long)layout(R, C).total;
 }
 
+// n_images images of R x C, one after another, in one launch.
 extern "C" int mloam_propagate_labels(const int* labels, const unsigned char* conn_h,
                                       const unsigned char* conn_v, int* out,
-                                      int R, int C, int rounds, void* stream_ptr,
-                                      int* n_launched) {
+                                      int n_images, int R, int C, int rounds,
+                                      void* stream_ptr, int* n_launched) {
   // the shared-memory limit is an attribute of the kernel on each device: set
   // it at the first call on each device the entry runs on
   constexpr int kMaxDevices = 64;
   static bool attribute_set[kMaxDevices] = {};
   *n_launched = 0;
-  if (R < 1 || C < 1 || C > SHRT_MAX || rounds < 1) return (int)cudaErrorInvalidValue;
+  if (n_images < 1 || n_images > kMaxImages || R < 1 || C < 1 || C > SHRT_MAX ||
+      rounds < 1)
+    return (int)cudaErrorInvalidValue;
   const Layout L = layout(R, C);
   if (L.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -296,7 +305,7 @@ extern "C" int mloam_propagate_labels(const int* labels, const unsigned char* co
   }
   const int B = R < kMaxCluster ? R : kMaxCluster;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B, 1, 1);
+  cfg.gridDim = dim3(B, n_images, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = static_cast<cudaStream_t>(stream_ptr);

@@ -15,6 +15,11 @@ tensor, its plain version on the CPU. Both follow the kernel's round structure
 branch (row, half-rolled row, column) at convergence. Cluster statistics
 (size, ring span) are scatter reductions keyed by the component label, which
 is a linear pixel index.
+
+Every function also takes the images of L lidars that share one sensor model
+as one batch, ``[L, R, C]`` (``[L, R, C, 3]`` for points): one label launch
+for the rig, labels in each image's own index space, cluster statistics keyed
+per image. Each image's result is the one it gets alone, to the bit.
 """
 
 from __future__ import annotations
@@ -45,22 +50,22 @@ def _beam_angle_connected(rng_a, rng_b, alpha: float, theta_rad: float):
 
 
 def connectivity(img: RangeImage, model: LidarModel, cfg: SegmenterConfig):
-    """(ground, clusterable, conn_h, conn_v), all bool [R, C]. ``conn_h[:, 0]``
-    holds the azimuth wrap flag (col C-1 <-> col 0), the layout
-    ``propagate_labels`` takes."""
-    r, c = img.valid.shape
+    """(ground, clusterable, conn_h, conn_v), all bool [..., R, C].
+    ``conn_h[..., 0]`` holds the azimuth wrap flag (col C-1 <-> col 0), the
+    layout ``propagate_labels`` takes."""
+    r = img.valid.shape[-2]
     dev = img.valid.device
     rng = torch.where(img.valid, img.rng, 0.0)
 
     # --- ground: slope between vertically adjacent returns in bottom rows
-    d = img.xyz[1:] - img.xyz[:-1]
+    d = img.xyz[..., 1:, :, :] - img.xyz[..., :-1, :, :]
     slope = torch.abs(torch.atan2(
         d[..., 2], torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])))
-    pair_ok = img.valid[1:] & img.valid[:-1] & (
+    pair_ok = img.valid[..., 1:, :] & img.valid[..., :-1, :] & (
         slope < math.radians(cfg.ground_angle_deg))
-    ground = torch.zeros((r, c), dtype=torch.bool, device=dev)
-    ground[:-1] = pair_ok
-    ground[1:] |= pair_ok
+    ground = torch.zeros_like(img.valid)
+    ground[..., :-1, :] = pair_ok
+    ground[..., 1:, :] |= pair_ok
     row_idx = torch.arange(r, device=dev)[:, None]
     ground = ground & (row_idx < cfg.ground_rows) & img.valid
 
@@ -71,23 +76,25 @@ def connectivity(img: RangeImage, model: LidarModel, cfg: SegmenterConfig):
     alpha_v = math.radians(
         (model.fov_up_deg - model.fov_down_deg) / max(model.n_rings - 1, 1))
 
-    conn_h = torch.zeros((r, c), dtype=torch.bool, device=dev)
-    conn_h[:, 1:] = (
-        clusterable[:, 1:] & clusterable[:, :-1]
-        & _beam_angle_connected(rng[:, 1:], rng[:, :-1], alpha_h, theta))
+    conn_h = torch.zeros_like(img.valid)
+    conn_h[..., 1:] = (
+        clusterable[..., 1:] & clusterable[..., :-1]
+        & _beam_angle_connected(rng[..., 1:], rng[..., :-1], alpha_h, theta))
     # wrap-around adjacency col C-1 <-> col 0
-    conn_h[:, 0] = (
-        clusterable[:, 0] & clusterable[:, -1]
-        & _beam_angle_connected(rng[:, 0], rng[:, -1], alpha_h, theta))
-    conn_v = torch.zeros((r, c), dtype=torch.bool, device=dev)
-    conn_v[1:] = (
-        clusterable[1:] & clusterable[:-1]
-        & _beam_angle_connected(rng[1:], rng[:-1], alpha_v, theta))
+    conn_h[..., 0] = (
+        clusterable[..., 0] & clusterable[..., -1]
+        & _beam_angle_connected(rng[..., 0], rng[..., -1], alpha_h, theta))
+    conn_v = torch.zeros_like(img.valid)
+    conn_v[..., 1:, :] = (
+        clusterable[..., 1:, :] & clusterable[..., :-1, :]
+        & _beam_angle_connected(rng[..., 1:, :], rng[..., :-1, :], alpha_v, theta))
     return ground, clusterable, conn_h, conn_v
 
 
 def segment(img: RangeImage, model: LidarModel, cfg: SegmenterConfig) -> Segmentation:
-    r, c = img.valid.shape
+    """Segment one image [R, C] or a batch [L, R, C] in one label launch."""
+    shape = img.valid.shape
+    r, c = shape[-2:]
     dev = img.valid.device
     ground, clusterable, conn_h, conn_v = connectivity(img, model, cfg)
 
@@ -98,22 +105,28 @@ def segment(img: RangeImage, model: LidarModel, cfg: SegmenterConfig) -> Segment
                                             rounds=n_rounds)
 
     # --- cluster stats via scatter keyed on label (slot r*c is the sink of
-    # non-clusterable cells: in range, hence the +1)
+    # non-clusterable cells: in range, hence the +1), image l's slots offset
+    # by l*(r*c+1)
+    n_img = labels.numel() // (r * c)
     flat = labels.reshape(-1).to(torch.int64)
+    if n_img > 1:
+        base = (torch.arange(n_img, device=dev) * (r * c + 1))[:, None]
+        flat = (flat.reshape(n_img, r * c) + base).reshape(-1)
+    n_slots = n_img * (r * c + 1)
     is_c = clusterable.reshape(-1)
     ones = is_c.to(torch.int64)
-    size = torch.zeros(r * c + 1, dtype=torch.int64, device=dev).index_add_(0, flat, ones)
-    rows2d = torch.arange(r, device=dev)[:, None].expand(r, c).reshape(-1)
-    rmin = torch.full((r * c + 1,), r, dtype=torch.int64, device=dev).scatter_reduce_(
+    size = torch.zeros(n_slots, dtype=torch.int64, device=dev).index_add_(0, flat, ones)
+    rows2d = torch.arange(r, device=dev)[:, None].expand(shape).reshape(-1)
+    rmin = torch.full((n_slots,), r, dtype=torch.int64, device=dev).scatter_reduce_(
         0, flat, torch.where(is_c, rows2d, r), "amin", include_self=True)
-    rmax = torch.full((r * c + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce_(
+    rmax = torch.full((n_slots,), -1, dtype=torch.int64, device=dev).scatter_reduce_(
         0, flat, torch.where(is_c, rows2d, -1), "amax", include_self=True)
     span = rmax - rmin + 1
 
     big = size >= cfg.min_cluster_size
     liney = (size >= cfg.segment_valid_point_num) & (span >= cfg.min_line_num)
     keep_label = big | liney
-    keep = clusterable & keep_label[flat].reshape(r, c)
+    keep = clusterable & keep_label[flat].reshape(shape)
     outlier = clusterable & ~keep
 
     return Segmentation(

@@ -494,6 +494,11 @@ CORRIDOR_COMP_START = 15      # the companion's first sweep
 CORRIDOR_THRESHOLD = 175.0    # the armed window's remap threshold
 
 
+def _without_project_prior(cfg):
+    return dataclasses.replace(cfg, odometry=dataclasses.replace(
+        cfg.odometry, remap_project_prior=False))
+
+
 def corridor_course(frames: int, noise: float, seed: int, device=None,
                     configure=_identity):
     """The degenerate tunnel of the JAX ``corridor`` program: the config
@@ -901,6 +906,9 @@ def main(argv=None):
         if name == "corridor":
             # the remap threshold is calibrated at the 0.01 operating point
             p.add_argument("--noise", type=float, default=0.01)
+            # the JAX program's CORR_PP=0: the remap leaves the window's
+            # marginalization prior unprojected
+            p.add_argument("--no-project-prior", action="store_true")
         if name == "dynamic":
             p.set_defaults(frames=60)
         if name == "long":
@@ -942,7 +950,9 @@ def main(argv=None):
         _print(res["summary"], ("ate_m", "keyframes", "loops", "kf_ate_odom_m",
                                 "kf_ate_corrected_m"))
     elif a.program == "corridor":
-        res = measure_corridor(a.frames, a.noise, a.seed)
+        res = measure_corridor(a.frames, a.noise, a.seed,
+                               configure=(_without_project_prior if a.no_project_prior
+                                          else _identity))
         write_corridor(res)
         print(json.dumps({k: {kk: vv for kk, vv in v.items()
                               if kk not in ("eig_min_trace", "frozen_dirs_per_frame")}

@@ -42,7 +42,8 @@ Each sweep's three stages run under the stage timers ``odom_mea_pre`` /
 ``odom_tracker`` / ``odom_solver`` (``utils/timing``).
 
 Per sweep the hand-written kernels run once per lidar for label propagation
-(``ops/hopper_labels``) and for k-NN (``ops/hopper_knn``) twice per tracker
+(``ops/hopper_labels``; once for the whole rig on a batched steady sweep,
+below) and for k-NN (``ops/hopper_knn``) twice per tracker
 (one tracker, or one per lidar in mode 2; none on a steady sweep with
 ``skip_steady``) and twice in the window solve.
 
@@ -57,8 +58,18 @@ registration (six k-NN calls) and, with ``loop.use_global_registration``,
 the FFT correlation registration and a fine registration seeded by it (six
 more); the pose-graph optimization when a loop is verified.
 
-The JAX package's opt-in vmapped frontend for uniform rigs (an environment
-switch it measured slower than the unrolled default) has no counterpart.
+The batched frontend for uniform rigs: when every lidar of a rig of L > 1
+has the same sensor model, the steady step stacks the rig's L sweeps and
+runs one frontend over the batch ``[L, R, C]``: one label launch for the rig
+(the kernel over ``[L, R, C]``), every other frontend op issued once, not L
+times. Its outputs, split per lidar, equal the unrolled frontends' to the
+bit. A rig of mixed sensor models, the first sweep, the warm-up and
+calibration modes 2 and 1 run one frontend per lidar. The JAX package
+vmaps its frontend over the lidar axis only behind the opt-in switch
+``MLOAM_BATCH_FE``, since on the TPU the vmapped label kernel ran slower
+than unrolled copies; on the H100 the batch issues fewer device ops and its
+one label launch takes less time than L single ones (``PERF.md``), so the
+port has no switch and batches whenever the rig is uniform.
 """
 
 from __future__ import annotations
@@ -123,6 +134,16 @@ def _index(tree, k):
     return type(tree)(*(f[k] for f in tree))
 
 
+def _stack_frames(imgs, device):
+    """L synchronized sweeps of one sensor model -> one batch [L, ...]: a
+    RangeImage on ``device``, or a PackedFrame (host wire arrays stacked on
+    the host, so the rig's sweep crosses to the device in one copy)."""
+    if isinstance(imgs[0], RI.PackedFrame):
+        return RI.PackedFrame(*(np.stack(f) if isinstance(f[0], np.ndarray)
+                                else torch.stack(f) for f in zip(*imgs)))
+    return RangeImage(*(torch.stack([x.to(device) for x in f]) for f in zip(*imgs)))
+
+
 class OdometryPipeline:
     """Single- or multi-LiDAR odometry front-to-back (no mapping backend).
 
@@ -137,6 +158,9 @@ class OdometryPipeline:
         self.cfg = cfg
         self._rays = [RI.unit_rays(m, device=self.device)
                       for m in cfg.rig.models]
+        # the batched frontend of the steady step (module docstring)
+        models = cfg.rig.models
+        self._uniform_rig = len(models) > 1 and all(m == models[0] for m in models)
         self.reset()
 
     def reset(self):
@@ -197,13 +221,13 @@ class OdometryPipeline:
         )
         # segmentation rejects as a third feature class for map completeness
         # (stored for the mapper's keyframes, not matched)
-        r, c = img.rng.shape
+        *lead, r, c = img.rng.shape
         rows = torch.arange(r, dtype=torch.int32, device=self.device)[:, None] \
-            .expand(r, c).reshape(-1)
+            .expand(img.rng.shape).reshape(*lead, -1)
         out_fc = FeatCloud(
-            xyz=img.xyz.reshape(-1, 3),
-            mask=seg.outlier.reshape(-1),
-            time=img.time.reshape(-1),
+            xyz=img.xyz.reshape(*lead, -1, 3),
+            mask=seg.outlier.reshape(*lead, -1),
+            time=img.time.reshape(*lead, -1),
             ring=rows,
         )
         outlier = downsample_featcloud(
@@ -213,10 +237,20 @@ class OdometryPipeline:
         )
         return ff, corner, surf, outlier
 
-    def _frontends(self, imgs):
-        """Every lidar's frontend: (ffs, corners, surfs, outliers) lists."""
-        outs = [self._frontend_impl(img, l) for l, img in enumerate(imgs)]
-        return tuple(list(x) for x in zip(*outs))
+    def _frontends(self, imgs, batched: bool = False):
+        """Every lidar's frontend: (ffs, corners, surfs, outliers) lists.
+        ``batched``: the rig's sweeps stacked and run as one frontend over
+        the batch (model 0's), its outputs split per lidar."""
+        if not batched:
+            outs = [self._frontend_impl(img, l) for l, img in enumerate(imgs)]
+            return tuple(list(x) for x in zip(*outs))
+        ff, corner, surf, outlier = self._frontend_impl(
+            _stack_frames(imgs, self.device), 0)
+        lidars = range(len(imgs))
+        return ([FeatureFrame(*(_index(fc, l) for fc in ff)) for l in lidars],
+                [_index(corner, l) for l in lidars],
+                [_index(surf, l) for l in lidars],
+                [_index(outlier, l) for l in lidars])
 
     def _track(self, prev: FeatureFrame, curr: FeatureFrame, T: Pose):
         return TR.track(prev, curr, T, self.cfg.tracker)
@@ -273,7 +307,8 @@ class OdometryPipeline:
 
     def _fused_step_impl(self, window, world_pose, motion0, prev_feat0, imgs):
         """Whole-sweep step of the steady pure-odometry phase (ext_mode 0,
-        window full): every lidar's frontend, the reference-lidar tracker,
+        window full): every lidar's frontend (one batched frontend for the
+        rig when ``_uniform_rig``), the reference-lidar tracker,
         de-skew of every lidar through its extrinsic, window solve over all
         lidars' correspondences and marginalization, each stage under its
         timer.
@@ -285,7 +320,8 @@ class OdometryPipeline:
         inverse(poses[-2]) ∘ poses[-1]; no tracker spectrum is returned."""
         L = self.cfg.rig.n_lidars
         with timing.timer("odom_mea_pre"):
-            ffs, corners, surfs, outliers = self._frontends(imgs)
+            ffs, corners, surfs, outliers = self._frontends(
+                imgs, batched=self._uniform_rig)
         skip = self.cfg.tracker.skip_steady
         with timing.timer("odom_tracker"):
             if skip:

@@ -7,6 +7,8 @@ Counterpart of ``mloam_tpu/ops/select.py``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_BIG = -1e30
@@ -61,23 +63,43 @@ def _compaction_plan(mask: torch.Tensor, cap: int):
     return dest, sel, out_mask
 
 
+def take_rows(values: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Rows ``rows`` [..., K] of ``values`` [..., N, *tail], each leading
+    index from its own rows (``values[rows]`` for one cloud). A ``gather``,
+    one device op as the indexing is: ``take_along_dim`` adds a
+    ``remainder`` pass over the indices."""
+    tail = values.shape[rows.ndim:]
+    idx = rows.reshape(rows.shape + (1,) * len(tail)).expand(rows.shape + tail)
+    return values.gather(rows.ndim - 1, idx)
+
+
 def compact_stride(values: torch.Tensor, mask: torch.Tensor, cap: int,
                    fill=0.0):
-    """[N, ...] -> ([cap, ...], mask [cap]) without any sort.
+    """[N, ...] -> ([cap, ...], mask [cap]) without any sort; with leading
+    axes, values [*B, N, ...] and mask [*B, N] give [*B, cap, ...], each
+    leading index (a lidar) compacted on its own.
 
     Valid rows are scattered to the front by their cumsum rank (stable), and
     when more than ``cap`` are valid an even stride over the compacted rows
     is taken. Invalid rows go to a sink slot one past the end (an ``n+1``
-    buffer, sliced): a CUDA scatter must stay in range.
+    buffer whose last slot is never read): a CUDA scatter must stay in range.
     """
-    n = mask.shape[0]
+    lead = mask.shape[:-1]
+    n = mask.shape[-1]
+    tail = values.shape[mask.ndim:]
+    rows = math.prod(lead)
     dest, sel, out_mask = _compaction_plan(mask, cap)
-    buf = torch.full((n + 1,) + values.shape[1:], fill, dtype=values.dtype,
+    sel = torch.clamp(sel, max=n - 1)
+    if rows > 1:
+        # each leading index's rows in one flat buffer of (n + 1)-row blocks
+        base = (torch.arange(rows, dtype=torch.int64, device=mask.device)
+                * (n + 1)).reshape(lead + (1,))
+        dest, sel = dest + base, sel + base
+    buf = torch.full((rows * (n + 1),) + tail, fill, dtype=values.dtype,
                      device=values.device)
-    buf[dest] = values
-    shape = (cap,) + (1,) * (values.ndim - 1)
-    picked = buf[:n][torch.clamp(sel, max=n - 1)]
-    return torch.where(out_mask.reshape(shape), picked, fill), out_mask
+    buf[dest.reshape(-1)] = values.reshape((-1,) + tail)
+    shape = lead + (cap,) + (1,) * len(tail)
+    return torch.where(out_mask.reshape(shape), buf[sel], fill), out_mask
 
 
 def compact_gather_indices(mask: torch.Tensor, cap: int):

@@ -14,6 +14,13 @@ valid-first sort key.
 The segment sums are ``segsum.index_sum``: fixed-point integer adds, so a
 centroid has the same bits on every run and on any device, whatever order
 the device adds its members in.
+
+``voxel_reduce`` (packed), ``segment_mean``, ``segment_sum`` and
+``voxel_downsample`` (packed) also take a batch of clouds, points [L, N, 3] with masks [L, N] (the lidars
+of a rig): each row is sorted on its own, which is a sort whose key leads
+with the lidar index, so no voxel spans two lidars, and each row's sums take
+their own fixed-point scale (the batch form of ``index_sum``). Each row's
+result is the one it gets alone, to the bit.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from mloam_tpu_torch.ops.segsum import index_sum
+from mloam_tpu_torch.ops.select import take_rows
 
 _SENTINEL = 2 ** 30
 
@@ -48,23 +56,25 @@ class VoxelReduction(NamedTuple):
 
 def _rel_coords(ijk: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Coordinates re-based to the valid minimum, clamped to 10 bits/axis."""
-    base = torch.min(torch.where(valid[:, None], ijk, _SENTINEL), dim=0).values
-    return torch.clamp(ijk - base[None], 0, 1023)
+    base = torch.min(torch.where(valid[..., None], ijk, _SENTINEL), dim=-2).values
+    return torch.clamp(ijk - base[..., None, :], 0, 1023)
 
 
 def _reduction_from_sorted(order, valid, differs) -> VoxelReduction:
-    head = torch.cat([valid[:1], differs & valid[1:]])
+    head = torch.cat([valid[..., :1], differs & valid[..., 1:]], -1)
     h = head.to(torch.int64)
-    seg_id = torch.clamp(torch.cumsum(h, 0) - 1, min=0)
-    num = torch.sum(h)
-    n = order.shape[0]
-    out_mask = torch.arange(n, dtype=torch.int64, device=order.device) < num
+    seg_id = torch.clamp(torch.cumsum(h, -1) - 1, min=0)
+    num = torch.sum(h, -1)
+    n = order.shape[-1]
+    out_mask = torch.arange(n, dtype=torch.int64, device=order.device) < num[..., None]
     return VoxelReduction(num, out_mask, order, seg_id, valid)
 
 
 def voxel_reduce(ijk: torch.Tensor, valid_in: torch.Tensor,
                  packed: bool = False) -> VoxelReduction:
-    """Group points by integer voxel coordinate; all shapes static.
+    """Group points by integer voxel coordinate; all shapes static. ``ijk``
+    [N, 3], ``valid_in`` [N]; with ``packed``, leading axes may hold
+    separate clouds ([..., N, 3], [..., N]).
 
     ``packed=False``: exact lexicographic sort (4 stable sort passes) —
     unbounded coordinate range, used for map-scale reductions.
@@ -75,12 +85,12 @@ def voxel_reduce(ijk: torch.Tensor, valid_in: torch.Tensor,
     """
     if packed:
         rel = _rel_coords(ijk, valid_in)
-        key = (rel[:, 0] << 20) | (rel[:, 1] << 10) | rel[:, 2]
+        key = (rel[..., 0] << 20) | (rel[..., 1] << 10) | rel[..., 2]
         key = torch.where(valid_in, key, _SENTINEL)
-        order = torch.argsort(key, stable=True)
-        sorted_key = key[order]
-        valid = valid_in[order]
-        differs = sorted_key[1:] != sorted_key[:-1]
+        order = torch.argsort(key, dim=-1, stable=True)
+        sorted_key = key.gather(-1, order)
+        valid = valid_in.gather(-1, order)
+        differs = sorted_key[..., 1:] != sorted_key[..., :-1]
     else:
         # lexsort, least-significant key first, each pass stable
         order = torch.arange(ijk.shape[0], dtype=torch.int64, device=ijk.device)
@@ -100,31 +110,33 @@ def segment_mean(values: torch.Tensor, red: VoxelReduction,
                  weights: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted mean of per-point payload over voxels.
 
-    values: [N, ...] in *original* order; returns [N, ...] compacted (valid in
-    the first num_voxels rows).
+    values: [..., N, ...] in *original* order; returns [..., N, ...]
+    compacted (valid in the first num_voxels rows).
     """
-    n = values.shape[0]
-    v = values[red.order].reshape(n, -1)
-    w = (torch.ones((n,), dtype=values.dtype, device=values.device)
-         if weights is None else weights[red.order])
+    lead, n = red.order.shape[:-1], red.order.shape[-1]
+    v = take_rows(values, red.order).reshape(lead + (n, -1))
+    w = (torch.ones(red.order.shape, dtype=values.dtype, device=values.device)
+         if weights is None else take_rows(weights, red.order))
     w = torch.where(red.sorted_valid, w, 0.0)
-    wv = torch.where(red.sorted_valid[:, None], v * w[:, None], 0.0)
+    wv = torch.where(red.sorted_valid[..., None], v * w[..., None], 0.0)
     # the weighted payload and the weights in one order-independent sum
-    sums = index_sum(torch.cat([wv, w[:, None]], 1), red.seg_id, n)
-    mean = sums[:, :-1] / torch.clamp(sums[:, -1:], min=1e-12)
+    sums = index_sum(torch.cat([wv, w[..., None]], -1), red.seg_id, n)
+    mean = sums[..., :-1] / torch.clamp(sums[..., -1:], min=1e-12)
     return mean.reshape(values.shape)
 
 
 def segment_sum(values: torch.Tensor, red: VoxelReduction) -> torch.Tensor:
-    v = values[red.order]
-    v = torch.where(red.sorted_valid.reshape(_tail(values)), v, 0.0)
-    return index_sum(v, red.seg_id, values.shape[0])
+    v = take_rows(values, red.order)
+    valid = red.sorted_valid.reshape(
+        red.sorted_valid.shape + (1,) * (values.ndim - red.order.ndim))
+    return index_sum(torch.where(valid, v, 0.0), red.seg_id, red.order.shape[-1])
 
 
 def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
                      payload: torch.Tensor | None = None,
                      packed: bool = False):
-    """Centroid voxel filter. Returns (xyz_ds [N,3], mask_ds [N], payload_ds)."""
+    """Centroid voxel filter. Returns (xyz_ds [..., N, 3], mask_ds [..., N],
+    payload_ds)."""
     red = voxel_reduce(voxel_coords(xyz, leaf), mask, packed=packed)
     out_xyz = segment_mean(xyz, red)
     out_payload = None if payload is None else segment_mean(payload, red)

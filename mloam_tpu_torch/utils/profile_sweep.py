@@ -1,8 +1,13 @@
 """Where one steady sweep spends its time on the GPU.
 
     python -m mloam_tpu_torch.utils.profile_sweep [n_sweeps] [trace.json] [--mapping | --slam]
+        [--rig dual | hercules [--unrolled]]
 
-Warms the single-LiDAR pipeline at the full width of the synthetic platform,
+Warms the single-LiDAR pipeline at the full width of the synthetic platform
+(with ``--rig``: the dual synthetic rig, or the four-lidar Hercules rig, in
+mode 0 with the calibration program's extrinsics installed; their steady
+sweeps run the batched frontend, or with ``--unrolled`` one frontend per
+lidar, as a rig of mixed sensor models does),
 then drives ``OdometryPipeline.process`` (with ``--mapping``:
 ``FullPipeline.process``, warmed until its map holds keyframes; every
 second sweep is then mapped) on fresh sweeps: ``n_sweeps``
@@ -32,8 +37,9 @@ import time
 import torch
 
 from mloam_tpu_torch import resolve_device
+from mloam_tpu_torch.core import se3
 from mloam_tpu_torch.core.rangeimage import RangeImage
-from mloam_tpu_torch.models import platforms, run_synthetic
+from mloam_tpu_torch.models import experiments, platforms, run_synthetic
 from mloam_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline, SlamPipeline
 from mloam_tpu_torch.utils import timing
 
@@ -96,33 +102,49 @@ def slam_main(n_sweeps: int = 3):
                       "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
-def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False):
+RIGS = {"dual": lambda: platforms.synthetic(n_lidars=2, extrinsic_mode=0),
+        "hercules": lambda: platforms.vehicle_hercules(extrinsic_mode=0)}
+
+
+def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False,
+         rig: str | None = None, unrolled: bool = False):
     dev = resolve_device(None)
-    cfg = platforms.synthetic(n_lidars=1)
+    cfg = RIGS[rig]() if rig else platforms.synthetic(n_lidars=1)
+    L = cfg.rig.n_lidars
+    ext = se3.exp(torch.tensor([[0.0] * 6] + [list(x) for x in
+                                              experiments.CALIB_TANGENTS[:L - 1]],
+                               device=dev))
     warm = cfg.odometry.window_size + 3
-    imgs, _ = run_synthetic.render(cfg, warm + 2 * n_sweeps, seed=0, device=dev)
-    frames = iter(RangeImage(*(f[i] for f in imgs)) for i in range(imgs[0].shape[0]))
+    seqs, _ = run_synthetic.render_rig(cfg, warm + 2 * n_sweeps, seed=0, extrinsics=ext,
+                                       device=dev)
+    frames = iter([RangeImage(*(f[i] for f in imgs)) for imgs in seqs]
+                  for i in range(warm + 2 * n_sweeps))
     pipe = (FullPipeline if mapping else OdometryPipeline)(cfg, device=dev)
+    odom = pipe.odom if mapping else pipe
+    if L > 1:
+        odom.set_extrinsics(ext)
+    if unrolled:
+        odom._uniform_rig = False
     stages = ("odom_mea_pre", "odom_tracker", "odom_solver") + (("map_step",) if mapping else ())
     for _ in range(warm):
-        pipe.process([next(frames)])
+        pipe.process(next(frames))
 
     timing.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_sweeps):
-        pipe.process([next(frames)])
+        pipe.process(next(frames))
     torch.cuda.synchronize()
     print(json.dumps({
         "untraced_sweeps": n_sweeps,
         "wall_ms_per_sweep_untraced": (time.perf_counter() - t0) * 1e3 / n_sweeps,
-        "mapping": mapping,
+        "mapping": mapping, "lidars": L, "batched_frontend": odom._uniform_rig,
         "stage_ms": {k: [x * 1e3 for x in timing._registry[k]] for k in stages},
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
     def sweeps():
         for _ in range(n_sweeps):
-            pipe.process([next(frames)])
+            pipe.process(next(frames))
 
     _, prof, wall_ms = _traced(sweeps)
     wall_ms /= n_sweeps
@@ -150,10 +172,18 @@ def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False
 
 
 if __name__ == "__main__":
-    flags = {"--mapping", "--slam"}
-    args = [a for a in sys.argv[1:] if a not in flags]
-    if "--slam" in sys.argv[1:]:
+    argv = sys.argv[1:]
+    rig = None
+    if "--rig" in argv:
+        i = argv.index("--rig")
+        rig = argv[i + 1]
+        if rig not in RIGS:
+            sys.exit(f"--rig takes one of {sorted(RIGS)}, not {rig!r}")
+        del argv[i:i + 2]
+    flags = {"--mapping", "--slam", "--unrolled"}
+    args = [a for a in argv if a not in flags]
+    if "--slam" in argv:
         slam_main(int(args[0]) if args else 3)
     else:
         main(int(args[0]) if args else 3, args[1] if len(args) > 1 else None,
-             mapping="--mapping" in sys.argv[1:])
+             mapping="--mapping" in argv, rig=rig, unrolled="--unrolled" in argv)
