@@ -19,9 +19,13 @@ sweeps must make:
 
 - the main path: single-LiDAR odometry, rendered sweep to refined pose, 24
   sweeps at the full width of the synthetic VLP-16 platform, ATE < 5 cm;
+  the stage timers wait for the device nowhere (the synchronising branch
+  counted every sweep: only the per-sweep timer's two waits), and with
+  ``sync_timing`` switched on for the last two sweeps once at each stage's
+  entry and exit;
 - the rig path: a dual VLP-16 rig with known extrinsics (ESTIMATE_EXTRINSIC
   0), 24 sweeps, ATE < 5 cm;
-- the calibration path: the same rig from fully unknown extrinsics, 64
+- the calibration path: the same rig from fully unknown extrinsics, 58
   sweeps of rotation-rich motion through the lifecycle 2 -> 1 -> 0, which must
   complete with a final extrinsic error under 5 mrad and 2 cm;
 - the presets: 8 sweeps each of Oxford (2x HDL-32, 32x2160), KITTI (HDL-64,
@@ -59,7 +63,7 @@ sweeps must make:
   only at the mapper's staleness read, ``eigh`` and a verified loop's
   correction read and optimization, besides the pipelined flags' events;
 - the slam drift path: the JAX package's ``bench.py`` slam pass (the tuned
-  operating point, a 15 m surround map, range noise 0.03 m, 130 sweeps):
+  operating point, a 15 m surround map, range noise 0.03 m, 100 sweeps):
   loops, keyframe ATE before and after the optimization and keyframe-sweep
   times recorded, gated on finite outputs, the counters and the sync probe;
 - the corridor path: the degenerate tunnel of the JAX package's
@@ -73,13 +77,13 @@ sweeps must make:
   that on part of its own noise draws), and the armed run's host waits
   probed (only ``eigh``);
 - the robust path: the JAX package's ``tests/test_robust_e2e.py`` on the
-  port's world, range noise 0.02 m: with three movers (36 sweeps) gm beats
-  huber by 5 % and gnc_gm beats huber; without (16 sweeps) gnc_gm is no
+  port's world, range noise 0.02 m: with three movers (28 sweeps) gm beats
+  huber by 5 % and gnc_gm beats huber; without (12 sweeps) gnc_gm is no
   more than 15 % worse;
 - the silence of the window's (and on the slam floor course the mapper's)
   remap on observed scenes: no direction frozen on the main path and the
   floor course;
-- a repeat check: the map path's 24 sweeps run twice in one process from
+- a repeat check: the map path's first 16 sweeps run twice in one process from
   the same images give equal poses to the bit, and the voxel filters and
   the pose-graph solve give equal outputs over 20 calls on captured inputs;
   the order-independent segment sums are timed against ``index_add_`` on
@@ -102,9 +106,9 @@ sweeps must make:
   into fresh pipelines: state equal to the bit, the loop graph's keyframe
   count kept, the next sweep on the first-sweep branch and finite; file
   sizes and save / load seconds recorded;
-- the experiments path: the programs ``single`` (16 sweeps), ``mc`` (one
-  trial of 16 sweeps in each of its four cells) and ``inject_ext`` (levels
-  gt and inj, 10 sweeps of the dual rig) at full width, ATE < 5 cm (inject
+- the experiments path: the programs ``single`` (12 sweeps), ``mc`` (one
+  trial of 12 sweeps in each of its four cells) and ``inject_ext`` (levels
+  gt and inj, 8 sweeps of the dual rig) at full width, ATE < 5 cm (inject
   at gt), written (TUM, JSON, PCD and the plots' inputs);
 - the parallel path (the distributed solvers on stacked meshes, no kernel
   launched): the ``scaling`` program at 1024 poses (the nested-dissection
@@ -113,12 +117,16 @@ sweeps must make:
   edge-sharded ``optimize_pose_graph`` on the 600-pose ring (dense and PCG,
   within 1 mm of one device, repeated to the bit), the distributed BA at
   1024 poses x 1024 points x 4096 candidate planes (layouts agree to
-  0.1 mm, the error falls), the sharded surround map of a filled 512-slot
-  ring (the one-device point set and covariances), BAL at the reference
-  file's shape written from a seed (25 LM iterations, trivial and huber, at
-  the JAX tests' ratios; the 8-shard assembly), ``fit_robust`` on seeded
-  curves, one NCCL rank equal to the stacked mesh, and the DD solve at
-  4096 poses beside the ladder's.
+  0.1 mm, the error falls), the scaling report (the JAX report's four rows:
+  partition, input bytes and collective bytes by fabric equal to its
+  record's, efficiencies from the card's shard ms over an HGX H100 node's
+  published fabric figures, finite and in (0, 1]), the sharded surround map
+  of a filled 512-slot ring (the one-device point set and covariances), the
+  real-data programs over files written from seeds in the reference's
+  formats (BAL at the reference file's shape, 25 LM iterations, trivial and
+  huber, at the JAX tests' ratios, the 8-shard assembly; the curve and
+  quintic fits), one NCCL rank equal to the stacked mesh, and the DD solve
+  at 4096 poses beside the ladder's.
 
 The k-NN calls of the corridor path's first steady sweep (its window's
 two: the tracker is skipped) and its label-propagation call, the k-NN calls
@@ -207,9 +215,10 @@ SMS = torch.cuda.get_device_properties(0).multi_processor_count
 # rig 40, calibration 90, map 40, map rig 20, tuned 40, tuned rig 20 sweeps
 # before)
 N_FRAMES = 24
+SYNC_TIMING_SWEEPS = 2      # the main path's last sweeps, stage timers waiting
 ATE_GATE_M = 0.05
 KNN_RTOL = 1e-5
-CALIB_FRAMES = 64
+CALIB_FRAMES = 58          # the lifecycle freezes at 54 (cut from 64)
 CALIB_ROT_GATE_RAD = 5e-3
 CALIB_POS_GATE_M = 0.02
 PRESET_FRAMES = 8
@@ -224,7 +233,8 @@ SLAM_MAP_ATE_GATE_M = 0.25
 SLAM_KF_ATE_RATIO = 1.10
 SLAM_MIN_LOOP_SPAN = 8
 DRIFT_WARM = 40          # bench.py's warm-up before sweep times count
-DRIFT_PROBE_FROM = 100   # sweeps probed for host waits (their times are kept apart)
+DRIFT_FRAMES = 100       # the drift course cut from its 130 sweeps
+DRIFT_PROBE_FROM = 80    # sweeps probed for host waits (their times are kept apart)
 PGO_POSES = 600
 PGO_GATE_M = 1e-3
 # ring graphs timed dense against PCG for the ``auto`` rule
@@ -248,13 +258,14 @@ CORRIDOR_PROBE_FROM = 30
 JAX_CORRIDOR_EZ_ON_M = 0.7555999755859375
 CORRIDOR_EZ_MARGIN_M = 0.26
 # the robust-loss course (tests/test_robust_e2e.py:25-92): three movers
-ROBUST_FRAMES = 36          # cut from 50 / 24 for the whole script's time,
-ROBUST_CLEAN_FRAMES = 16    # every gate kept
+ROBUST_FRAMES = 28          # cut from 50 / 24 for the whole script's time,
+ROBUST_CLEAN_FRAMES = 12    # every gate kept
 ROBUST_MOVERS = ([[5.0, 2.0, 0.6], [-3.0, 6.0, 0.6], [7.0, -4.0, 0.5]],
                  [[0.0, 2.5]] * 3,
                  [[-1.2, -0.5], [0.8, -1.4], [-0.6, 1.3]])
 # calls of each captured voxel filter and of the PGO solve in the repeat check
 REPEAT_CALLS = 20
+REPEAT_FRAMES = 16          # the map path run twice (cut from 24)
 # the dual rig's prior extrinsic covariance on the map rig path ([rho; phi]
 # diagonal: 1 cm and 3 mrad standard deviations)
 # the deployment layer (ingest_path, resume_path, experiments_path)
@@ -267,8 +278,8 @@ GATED_FRAMES = 40           # a live 10 Hz stream through the realtime gate
 GATED_MAX_LAG_S = 0.2
 RESUME_FRAMES = 9           # tests/test_checkpoint.py:18-45
 RESUME_SLAM_FRAMES = 12     # tests/test_checkpoint.py:58-100
-EXP_FRAMES = 16             # experiments single, and mc's four cells
-EXP_INJECT_FRAMES = 10      # experiments inject_ext on the dual rig
+EXP_FRAMES = 12             # experiments single, and mc's four cells
+EXP_INJECT_FRAMES = 8       # experiments inject_ext on the dual rig
 MAP_RIG_EXT_COV = (1e-4, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
 # the distributed slice (parallel_path): the JAX scaling program's graph,
 # the deployment shape of its distributed BA (scaling_model.py:294-296),
@@ -288,6 +299,16 @@ BAL_HUBER_RATIO = 0.1       # :86-89: under 0.1x in 5 iterations
 BAL_SHARDED_RTOL = 1e-6
 DD_LARGE_POSES, DD_LARGE_ITERS = 4096, 3
 NCCL_TIMEOUT_S = 60
+# the JAX package's scaling report (results/scaling/summary.json, "model"):
+# partition (interiors a shard, intra separators a host, global separators,
+# owned separators a shard), input bytes a shard, collective bytes a GN
+# iteration within a node and across nodes; counts of the program, not rates
+SCALING_RECORD = {
+    "intra_8gpu_ba": ((121, 0, 81, 11), 17328336, 973252, 0),      # ici_8chip_ba
+    "inter_2node_ba": ((123, 49, 39, 9), 17328232, 1119360, 319204),  # dcn_2host_ba
+    "intra_8gpu_pgo": ((121, 0, 81, 11), 26832, 973252, 0),        # ici_8chip_pgo
+    "inter_2node_pgo": ((123, 49, 39, 9), 26728, 1119360, 319204),   # dcn_2host_pgo
+}
 # what the JAX package's `experiments calib` program recorded for the same
 # lifecycle (results/calib/summary.json): its world is drawn by another
 # generator, so the sweeps of the transitions are set beside, not compared
@@ -950,13 +971,51 @@ class FrozenSum:
         return tuple(float(torch.stack(x).sum()) if x else 0.0 for x in (self.win, self.map))
 
 
+class TimerWaits:
+    """``on_sweep`` callback beside ``FrozenSum``: the device waits the
+    timers issued in each sweep (``timing._sync``, the synchronising branch,
+    wrapped to count its calls inside the ``with`` block), and ``sync_timing``
+    switched on for the last ``SYNC_TIMING_SWEEPS`` sweeps of the run."""
+
+    def __init__(self, n_frames):
+        self.n_frames, self.per_sweep, self.calls = n_frames, [], 0
+        self.real = timing._sync
+
+    def __enter__(self):
+        def counted():
+            self.calls += 1
+            self.real()
+
+        timing._sync = counted
+        return self
+
+    def __exit__(self, *exc):
+        timing._sync = self.real
+
+    def __call__(self, i, out, pipe):
+        self.per_sweep.append(self.calls - sum(self.per_sweep))
+        if i == self.n_frames - SYNC_TIMING_SWEEPS - 1:
+            pipe.sync_timing = True
+
+
 def phase_main_path(cfg):
     zero_counters()
     frozen = FrozenSum()
-    res = run_synthetic.run(n_frames=N_FRAMES, seed=0, verbose=False,
-                            device=DEV, cfg=cfg, on_sweep=frozen)
+    waits = TimerWaits(N_FRAMES)
+
+    def on_sweep(i, out, pipe):
+        frozen(i, out, pipe)
+        waits(i, out, pipe)
+
+    with waits:
+        res = run_synthetic.run(n_frames=N_FRAMES, seed=0, verbose=False,
+                                device=DEV, cfg=cfg, on_sweep=on_sweep)
     n_labels, n_knn = hopper_labels.launches, hopper_knn.launches
     win_frozen, _ = frozen.totals()
+    # the per-sweep timer (odom_process) waits at each end of every sweep;
+    # the three stage timers only with sync_timing on, at entry and exit
+    stage_waits = [w - 2 for w in waits.per_sweep]
+    want_waits = [0] * (N_FRAMES - SYNC_TIMING_SWEEPS) + [6] * SYNC_TIMING_SWEEPS
     ws = cfg.odometry.window_size
     # one call per sweep, one launch per call
     check_counters("main path", n_labels, n_knn, N_FRAMES,
@@ -967,9 +1026,15 @@ def phase_main_path(cfg):
         "steady_ms_median": res["steady_ms_median"],
         "steady_fps": res["fps"],
         "win_frozen_sum": win_frozen,
+        "stage_timer_waits_per_sweep": stage_waits,
+        "sync_timing_from_sweep": N_FRAMES - SYNC_TIMING_SWEEPS,
         "launches": {"propagate_labels": n_labels, "knn": n_knn},
         "width": width(cfg),
     }})
+    if stage_waits != want_waits:
+        fail(f"main path: the stage timers waited for the device {stage_waits} times a "
+             f"sweep, expected {want_waits} (none by default, one at each stage entry "
+             "and exit with sync_timing)")
     # the disarmed default must not freeze on an observed scene
     # (tests/test_degeneracy_e2e.py:144-160)
     if win_frozen != 0:
@@ -1653,7 +1718,7 @@ class SyncProbe:
         return {k: dict(v) for k, v in self.lines.items()}
 
 
-def phase_slam_path(name, course_name, base_cfg, probe_from=0, gate_loops=True):
+def phase_slam_path(name, course_name, base_cfg, probe_from=0, gate_loops=True, frames=None):
     """``SlamPipeline`` through ``run_synthetic.run(slam=True)`` on the loop
     course ``course_name`` built on ``base_cfg``. After every
     sweep: K1 once per lidar (``labels_per_sweep``); K2 the odometry's, the mapper's (2 per outer
@@ -1664,6 +1729,7 @@ def phase_slam_path(name, course_name, base_cfg, probe_from=0, gate_loops=True):
     registration is counted. Sweeps from ``probe_from`` on run under the
     sync probe."""
     cfg, n_frames, seed, course = run_synthetic.loop_course(course_name, base_cfg)
+    n_frames = frames or n_frames
     L = cfg.rig.n_lidars
     ws = cfg.odometry.window_size
     mc = cfg.mapping
@@ -2022,8 +2088,8 @@ def corridor_kernel_checks(captured):
 def phase_robust_path():
     """tests/test_robust_e2e.py:25-92 on the port's world of seed 0 and
     trajectory of seed 1 (wobble 0.05), range noise 0.02 m: with three
-    movers (36 sweeps) huber, gm and gnc_gm (c 0.12); without (16 sweeps)
-    huber and gnc_gm."""
+    movers (``ROBUST_FRAMES`` sweeps) huber, gm and gnc_gm (c 0.12); without
+    (``ROBUST_CLEAN_FRAMES``) huber and gnc_gm."""
     base = platforms.synthetic(n_lidars=1)
     model = base.rig.models[0]
     w = W.make_world(torch.Generator().manual_seed(0), device=DEV)
@@ -2072,14 +2138,14 @@ def _outputs_equal(a, b):
 
 
 def phase_repeat_check(cfg):
-    """The map path's sweeps twice in one process from the same images: every
-    odometry and map pose equal to the bit. The first run keeps the first
-    input of each voxel filter (the frontend's centroid filter, the mapper's
+    """The map path's first ``REPEAT_FRAMES`` sweeps twice in one process
+    from the same images: every odometry and map pose equal to the bit. The
+    first run keeps the first input of each voxel filter (the frontend's centroid filter, the mapper's
     weighted one), each filter is called ``REPEAT_CALLS`` times on it and
     must give the same bits every time; and the inputs of the segment sums of
     its last sweep, each timed against ``index_add_`` on the same input (the
     cost per sweep of the repeatable sums)."""
-    seqs, _ = run_synthetic.render_rig(cfg, MAP_FRAMES, seed=0, device=DEV)
+    seqs, _ = run_synthetic.render_rig(cfg, REPEAT_FRAMES, seed=0, device=DEV)
     imgs = seqs[0]
     real = {"vd": voxel.voxel_downsample, "vc": voxel.voxel_downsample_with_cov,
             "sum": voxel.index_sum}
@@ -2101,8 +2167,8 @@ def phase_repeat_check(cfg):
             voxel.voxel_downsample, voxel.voxel_downsample_with_cov, voxel.index_sum = (
                 wrap("vd"), wrap("vc"), wrap("sum"))
         try:
-            for i in range(MAP_FRAMES):
-                if run == 0 and i == MAP_FRAMES - 1:
+            for i in range(REPEAT_FRAMES):
+                if run == 0 and i == REPEAT_FRAMES - 1:
                     last_sweep.append(True)
                 out = pipe.process([RangeImage(*(f[i] for f in imgs))])
                 poses.append((out.odom.pose.q, out.odom.pose.t, out.map_pose.q,
@@ -2135,7 +2201,7 @@ def phase_repeat_check(cfg):
                      "graph_ms": graph_ms(new), "index_add_graph_ms": graph_ms(old)})
     per_sweep = {k: sum(s[k] for s in sums) for k in ("ms", "index_add_ms", "graph_ms",
                                                        "index_add_graph_ms")}
-    emit({"repeat_check": {"frames": MAP_FRAMES, "sweeps_differing": differing,
+    emit({"repeat_check": {"frames": REPEAT_FRAMES, "sweeps_differing": differing,
                            "filters": filters, "last_sweep_mapped": last_mapped,
                            "segment_sums_last_sweep": sums,
                            "segment_sums_per_sweep": {**per_sweep, "calls": len(sums)}}})
@@ -2189,10 +2255,9 @@ def phase_pgo_check():
 
     ladder = []
     for n in PGO_LADDER:
-        # in turns up to 1024 poses; beyond, where PCG takes seconds and
-        # the dense solve a fraction of one, once each
-        r = LADDER.rung(n, 3, ("dense", "cg", "cg", "dense") if n <= 1024 else ("dense", "cg"),
-                        drift_total=PGO_POSES)
+        # once each (up to 1024 poses they ran in turns, dense, cg, cg,
+        # dense, until the script's time was cut)
+        r = LADDER.rung(n, 3, ("dense", "cg"), drift_total=PGO_POSES)
         if not r["finite"] or None in r["dense_ms"]:
             fail(f"pgo ladder, {n} poses: {r}")
         ladder.append(r)
@@ -2219,23 +2284,6 @@ def _pose_err(p, gt):
 
 def _max_dev(a, b):
     return max(float((a.t - b.t).abs().max()), float((a.q - b.q).abs().max()))
-
-
-def _survey_ba_map(gt, seed=7):
-    """The distributed BA's map at the deployment shape: each pose sees
-    ``BA_MAP`` candidate planes (anchors N(0, 5 m) in its body frame, placed
-    by the true pose, random unit normals) and ``BA_POINTS`` scan points,
-    the first candidates' anchors in its body frame: on their plane at the
-    truth."""
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    n = gt.q.shape[0]
-    b = 5.0 * torch.randn((n, BA_MAP, 3), generator=g, device=DEV)
-    anc = se3.transform_points(gt, b)
-    nrm = torch.randn((n, BA_MAP, 3), generator=g, device=DEV)
-    nrm = nrm / torch.linalg.norm(nrm, dim=-1, keepdim=True)
-    return DD.MapShard(pts=b[:, :BA_POINTS].contiguous(), anchors=anc, normals=nrm,
-                       w=torch.ones((n, BA_POINTS), device=DEV),
-                       valid=torch.ones((n, BA_MAP), device=DEV))
 
 
 def _surround_db(cfg, seed=11):
@@ -2279,6 +2327,38 @@ def _point_set(xyz, cov, mask):
     return x[order], c[order]
 
 
+def check_scaling_report(model, legacy):
+    """Print the scaling report's four rows and the PCG's legacy model, and
+    hold them: partition, input bytes and collective bytes by fabric equal to
+    the JAX record's (``SCALING_RECORD``), nothing across nodes on one node,
+    every efficiency finite and in (0, 1]."""
+    keys = ("efficiency_per_iter_measured", "efficiency_full_solve_measured")
+    rows = {}
+    for name, (part, input_bytes, intra, inter) in SCALING_RECORD.items():
+        r = model[name]
+        p = r["partition"]
+        got = ((p["interior_per_shard"], p["intra_sep_per_host"], p["global_sep"],
+                p["owned_sep_per_shard"]), r["input_bytes_per_device"],
+               r["collectives_per_gn"]["intra"]["bytes"], r["collectives_per_gn"]["inter"]["bytes"])
+        if got != (part, input_bytes, intra, inter):
+            fail(f"scaling report {name}: {got} against the JAX record's "
+                 f"{(part, input_bytes, intra, inter)}")
+        effs = [r[k] for k in keys]
+        if not all(math.isfinite(e) and 0.0 < e <= 1.0 for e in effs):
+            fail(f"scaling report {name}: efficiencies {effs}")
+        rows[name] = {k: r[k] for k in keys + (
+            "measured_shard_ms_per_gn", "measured_sep_solve_ms_per_gn",
+            "t_comm_intra_ms_per_gn", "t_comm_inter_ms_per_gn", "setup_bytes_assumed")}
+        rows[name]["collectives_per_gn"] = r["collectives_per_gn"]
+    for name in ("intra_8gpu", "inter_2node"):
+        effs = [legacy[name][k] for k in keys]
+        if not all(math.isfinite(e) and 0.0 < e <= 1.0 for e in effs):
+            fail(f"scaling report, legacy PCG model {name}: efficiencies {effs}")
+    emit({"scaling_report": {"model": model, "model_cg_legacy": legacy}})
+    rows["fabric"] = model["intra_8gpu_ba"]["fabric"]
+    return rows
+
+
 def phase_parallel_path(tmp, ladder):
     """The distributed slice at full size, every gate of the JAX package's
     own checks (counters: no kernel of this path is launched):
@@ -2288,7 +2368,12 @@ def phase_parallel_path(tmp, ladder):
       of 8 dense steps and no worse than them + 5 mm; the edge-sharded PCG
       on 8 shards under half the initial error; the collectives per GN
       iteration; the card's ms of one shard's work and of the separator
-      solve. Then ``dof4`` on the 2x4 layout, gated alike;
+      solve, bare and with the BA map; the scaling report's four rows (one
+      node of 8 GPUs and two nodes of 8, with the BA map and without) and
+      the PCG's legacy model, printed on a line of their own and held to the
+      JAX record's partition, input bytes and collective bytes by fabric,
+      exactly, with every efficiency finite and in (0, 1]. Then ``dof4`` on
+      the 2x4 layout, gated alike;
     - the edge-sharded ``optimize_pose_graph(mesh=)`` on the 600-pose ring,
       dense and PCG, on 8 shards: within 1 mm of the one-device solve,
       ``MESH_PGO_CALLS`` calls equal to the bit (and whether they equal the
@@ -2299,12 +2384,12 @@ def phase_parallel_path(tmp, ladder):
     - the sharded surround map of a filled 512-slot ring on 8 shards: the
       point set (1e-4 m) and covariances of the one-device truth, built
       apart (radius test, projection and pushforward of each keyframe);
-    - BAL at the reference file's shape (written from a seed, read by
-      ``load_bal``): 25 LM iterations trivial, then huber, under the ratios
-      of ``tests/test_realdata.py``; the 8-shard assembly against the dense
-      one;
-    - ``fit_robust`` on the seeded curve and quintic, the bounds of
-      ``tests/test_realdata.py:31-60``;
+    - the real-data programs (``models/realdata``) over a directory of
+      files written from seeds in the reference's formats: ``bal_program``
+      at the reference file's shape (25 LM iterations trivial, then huber,
+      under the ratios of ``tests/test_realdata.py``; the 8-shard assembly
+      against the dense one), ``curve_program`` and ``nonconvex_program``
+      (the bounds of ``tests/test_realdata.py:31-60``);
     - the process form: one NCCL rank (``file://`` rendezvous, a timeout on
       the join and on every collective) gives the stacked 1-shard mesh's
       poses to the bit, DD and dense mesh PGO;
@@ -2319,8 +2404,9 @@ def phase_parallel_path(tmp, ladder):
 
     # the scaling program: DD on three layouts, PCG on 8 shards
     scal = EXP.measure_scaling(DD_POSES, device=DEV)["summary"]
-    emit({"scaling": scal})
+    emit({"scaling": {k: v for k, v in scal.items() if k not in ("model", "model_cg_legacy")}})
     out["scaling"] = {k: scal[k] for k in ("poses", "edges", "measured", "card_ms")}
+    out["scaling_report"] = check_scaling_report(scal["model"], scal["model_cg_legacy"])
     poses0, edges, gt = SM.make_survey_graph(DD_POSES, noise=0.02, device=DEV)
     mesh24 = MESH.make_multihost_mesh(2, 4, device=DEV)
     ref4 = poses0
@@ -2364,7 +2450,7 @@ def phase_parallel_path(tmp, ladder):
             fail(f"parallel_path: mesh PGO {solver}: {MESH_PGO_CALLS - same} calls gave other bits")
 
     # the distributed BA at the deployment shape
-    ms = _survey_ba_map(gt)
+    ms = SM.survey_ba_map(gt, BA_POINTS, BA_MAP)
     out["ba"] = {"poses": DD_POSES, "points": BA_POINTS, "map": BA_MAP, "iters": BA_ITERS,
                  "map_bytes": sum(x.numel() * x.element_size() for x in ms),
                  "err0_m": _pose_err(poses0, gt)}
@@ -2407,42 +2493,38 @@ def phase_parallel_path(tmp, ladder):
         fail(f"parallel_path: sharded surround map: {out['surround_map']}")
     del db, xs, cs, msk, x1, c1, m1
 
-    # BAL at the reference file's shape, written and read back
+    # the real-data programs, on files written from the seeds in the
+    # reference's formats: BAL at the reference file's shape, the curve and
+    # the quintic
+    data = os.path.join(tmp, "realdata")
+    os.makedirs(data)
     (cams, pts, ci, pi, obs), _ = RD.synthetic_bal(0, *BAL_SHAPE)
-    path = os.path.join(tmp, "problem-49-7776-synthetic.txt")
-    BAL.write_bal(path, cams, pts, ci, pi, obs)
-    prob, t_load = _sync_s(lambda: BAL.load_bal(path, device=DEV))
-    (_, _, hist), t_triv = _sync_s(lambda: BAL.solve_bal(prob, iters=BAL_ITERS))
-    (_, _, hist_h), t_hub = _sync_s(lambda: BAL.solve_bal(prob, iters=BAL_ITERS, loss="huber",
-                                                          loss_scale=2.0))
-    dense = BAL.dense_assemble(prob.cams, prob.pts, prob, "trivial", 1.0, 1.0)
-    sh = BAL.make_sharded_assemble(mesh8)(prob.cams, prob.pts, prob, "trivial", 1.0, 1.0)
-    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(sh, dense)]
-    out["bal"] = {"cams": int(prob.cams.shape[0]), "pts": int(prob.pts.shape[0]),
-                  "obs": int(prob.obs.shape[0]), "pairs": int(prob.pair_i.shape[0]),
-                  "load_s": t_load, "trivial": {"cost": [hist[0], hist[10], hist[-1]],
-                                                 "wall_s": t_triv},
-                  "huber": {"cost": [hist_h[0], hist_h[5], hist_h[-1]], "wall_s": t_hub},
-                  "sharded_assembly_rel_err": rel}
-    if not (hist[10] < hist[0] / BAL_TRIVIAL_RATIO and hist_h[5] < BAL_HUBER_RATIO * hist_h[0]
-            and np.isfinite(hist[-1]) and max(rel) <= BAL_SHARDED_RTOL):
+    BAL.write_bal(os.path.join(data, RD.BAL_FILE), cams, pts, ci, pi, obs)
+    RD.write_xy(os.path.join(data, RD.CURVE_FILE), *RD.synthetic_curve(0))
+    RD.write_xy(os.path.join(data, RD.NONCONVEX_FILE), *RD.synthetic_quintic(0))
+    hist = {}
+    bal, t_bal = _sync_s(lambda: RD.bal_program(data, mesh8, DEV, histories=hist))
+    ht, hh = hist["trivial"], hist["huber"]
+    out["bal"] = {**bal, "program_s": t_bal, "trivial_cost": [ht[0], ht[10], ht[-1]],
+                  "huber_cost": [hh[0], hh[5], hh[-1]]}
+    rel = bal["sharded_assembly_rel_err"]
+    if not ((bal["cams"], bal["pts"], bal["obs"]) == BAL_SHAPE and bal["lm_iters"] == BAL_ITERS
+            and ht[10] < ht[0] / BAL_TRIVIAL_RATIO and hh[5] < BAL_HUBER_RATIO * hh[0]
+            and np.isfinite(ht[-1]) and max(rel) <= BAL_SHARDED_RTOL):
         fail(f"parallel_path: BAL: {out['bal']}")
 
-    # robust fitting on the seeded curve and quintic
-    x, y = RD.synthetic_curve(0)
-    fits, t0 = {}, time.perf_counter()
-    fits["huber"] = RD.fit_robust(x, y, "exp", "huber", 0.5, device=DEV)
-    fits["gm"] = RD.fit_robust(x, y, "exp", "gm", 1.0, p_init=fits["huber"], device=DEV)
-    fits["gnc_gm"] = RD.fit_robust(x, y, "exp", "gnc_gm", 1.0, device=DEV)
-    xq, yq = RD.synthetic_quintic(0)
-    qerr = {loss: float(np.abs(RD.fit_robust(xq, yq, "quintic", loss, sc, device=DEV)
-                               - np.asarray(RD.QUINTIC_GT)).max())
-            for loss, sc in (("huber", 2.0), ("gnc_gm", 5.0))}
-    out["fit_robust"] = {"curve": {k: [float(v) for v in p] for k, p in fits.items()},
-                         "quintic_max_coeff_err": qerr, "wall_s": time.perf_counter() - t0}
-    ph, pgm, pg = fits["huber"], fits["gm"], fits["gnc_gm"]
-    if not (abs(ph[0] - 0.3) < 0.02 and abs(ph[1] - 0.1) < 0.05 and abs(pg[0] - 0.3) < 0.02
-            and np.abs(pg - pgm).max() < 0.02 and max(qerr.values()) < 0.3):
+    # robust fitting: the curve and the quintic programs
+    t0 = time.perf_counter()
+    curve = RD.curve_program(data, DEV)
+    quintic = RD.nonconvex_program(data, DEV)
+    out["fit_robust"] = {"curve": curve, "nonconvex": quintic,
+                         "wall_s": time.perf_counter() - t0}
+    fits = curve["fits"]
+    ph, pgm, pg = (np.asarray([fits[k]["m"], fits[k]["c"]]) for k in ("huber", "gm", "gnc_gm"))
+    qerr = [quintic["fits"][k]["max_coeff_err"] for k in ("huber", "gnc_gm")]
+    if not (curve["n"] == 201 and quintic["n"] == 401
+            and abs(ph[0] - 0.3) < 0.02 and abs(ph[1] - 0.1) < 0.05 and abs(pg[0] - 0.3) < 0.02
+            and np.abs(pg - pgm).max() < 0.02 and max(qerr) < 0.3):
         fail(f"parallel_path: fit_robust: {out['fit_robust']}")
 
     # the process form: one NCCL rank against the stacked 1-shard mesh
@@ -3034,7 +3116,8 @@ def main():
     k2["max_abs_err"] = max([k2["max_abs_err"]] + [c["max_abs_err"] for c in loop_checks])
     lap("slam_path")
     by_path["slam_drift_path"], _ = phase_slam_path(
-        "slam_drift_path", "drift", cfg, probe_from=DRIFT_PROBE_FROM, gate_loops=False)
+        "slam_drift_path", "drift", cfg, probe_from=DRIFT_PROBE_FROM, gate_loops=False,
+        frames=DRIFT_FRAMES)
     lap("slam_drift_path")
     phase_repeat_check(cfg)
     lap("repeat_check")

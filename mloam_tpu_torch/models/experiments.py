@@ -12,8 +12,10 @@ in-repo evaluation, and ``scaling`` (the distributed pose-graph solvers on
 stacked meshes: the nested-dissection step on 1-D and 2-D layouts and the
 edge-sharded PCG, against the dense one-device step; the collectives each
 mesh counts per GN iteration; on the card, the ms of one shard's work and of
-the separator solve). The JAX program's efficiency model (compiled-HLO
-bytes and FLOPs against TPU fabric constants) has no counterpart here.
+the separator solve, and the scaling report: the JAX program's four
+efficiency rows from the collectives the meshes count and the card's shard
+ms over an HGX H100 node's published fabric figures, and the PCG's legacy
+model).
 
 Usage (the JAX program's arguments and defaults; runs on the GPU):
     python -m mloam_tpu_torch.models.experiments single --frames 40
@@ -86,8 +88,10 @@ CALIB_TANGENTS = (X_TANGENT, (-0.2, 0.15, -0.05, -0.04, 0.06, -0.4),
                   (0.1, 0.3, 0.02, 0.03, -0.05, 1.0))
 
 TIMING_NOTE = ("stages exclude the first 12 frames (warm-up; the first sweep "
-               "builds the CUDA kernels if they are not built yet); every "
-               "stage timer synchronises the device")
+               "builds the CUDA kernels if they are not built yet); "
+               "odom_process waits for the device at each end of a sweep, the "
+               "stages inside it read the host clock only (the host's time to "
+               "issue each stage)")
 
 OUTDIR = "results_torch"
 
@@ -138,7 +142,7 @@ def run_sequence(cfg, n_frames: int, seed: int = 0, n_lidars: int = 1,
     for i in range(n_frames):
         if i == warm_cut:
             timing.reset()
-        with timing.timer("odom_process"):   # synchronises the device
+        with timing.timer("odom_process", sync=True):   # waits for the device
             out = pipe.process(_frame(seqs, i))
         est_t.append(out.map_pose.t)
         est_q.append(out.map_pose.q)
@@ -452,8 +456,9 @@ def measure_slam(frames: int = 30, seed: int = 0, lidars: int = 1, traj: str = "
                "keyframes": n_kf, "loops": pipe.n_loops, **kf_ate,
                "platform": _platform(device),
                "timing_note": "stages over every sweep (the first builds the CUDA "
-                              "kernels if they are not built yet); every stage "
-                              "timer synchronises the device",
+                              "kernels if they are not built yet); "
+                              "odom_process waits for the device at each end "
+                              "of a sweep, the stages read the host clock only",
                "timing": timing.all_stats()}
     map_xyz, map_mask = keyframe_map(db)
     count = pipe.loop_kf_count
@@ -763,13 +768,16 @@ def _card_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
-def dd_card_ms(poses, edges, mesh) -> dict:
+def dd_card_ms(poses, edges, mesh, map_shard=None, assoc_chunk: int | None = None) -> dict:
     """On the card: one GN step of ``optimize_pose_graph_dd`` on ``mesh``
     (every shard, stacked), one shard's linearization and interior
-    elimination alone (shard 0's inputs), and the separator solve (the
-    damped Cholesky of the reduced system and its solve)."""
+    elimination alone (shard 0's inputs; with ``map_shard``, a BA map
+    ``DD.MapShard`` attached, its rows of shard 0 re-associated in the step,
+    ``assoc_chunk`` rows at a time), and the separator solve (the damped
+    Cholesky of the reduced system and its solve). The counterpart of the
+    JAX package's ``demos/profile_dd_shard.py``."""
     part = DD.mesh_partition(edges, poses.q.shape[0], mesh)
-    local, ez, _, _ = DD._prepare_device_inputs(part, edges, None, None, mesh)
+    local, ez, _, ms_dev = DD._prepare_device_inputs(part, edges, None, map_shard, mesh)
     nd = mesh.ndim
     first = tuple([0] * nd)
 
@@ -779,6 +787,8 @@ def dd_card_ms(poses, edges, mesh) -> dict:
     shard0 = DD.DDPartition(*(one(x) if f not in ("sep_idx", "sep_mask") else x
                               for f, x in zip(DD.DDPartition._fields, local)))
     ez0 = tuple(one(x) for x in ez)
+    ms0 = (None if ms_dev is None
+           else tuple(type(rows)(*(one(x) for x in rows)) for rows in ms_dev))
     # the reduced separator system as the step builds it (the damping and a
     # strong diagonal stand in for the anchor: a Cholesky's time does not
     # depend on the values)
@@ -792,12 +802,59 @@ def dd_card_ms(poses, edges, mesh) -> dict:
         L, _ = torch.linalg.cholesky_ex(Sd)
         return torch.cholesky_solve(gred[:, None], L)
 
-    return {"step_ms_all_shards": _card_ms(lambda: DD.dd_pgo_step(poses, local, ez, None,
-                                                                    None, mesh)),
-            "shard_ms_per_gn": _card_ms(lambda: DD.shard_system(poses, shard0, ez0, None,
-                                                                 None, nd=1)),
+    return {"step_ms_all_shards": _card_ms(lambda: DD.dd_pgo_step(
+                poses, local, ez, None, ms_dev, mesh, assoc_chunk=assoc_chunk)),
+            "shard_ms_per_gn": _card_ms(lambda: DD.shard_system(
+                poses, shard0, ez0, None, ms0, assoc_chunk=assoc_chunk, nd=1)),
             "sep_solve_ms_per_gn": _card_ms(sep_solve),
-            "separator_dim": int(Sd.shape[-1])}
+            "separator_dim": int(Sd.shape[-1]),
+            "interiors": int(part.int_idx.shape[1]),
+            "owned_sep": int(part.own_rows.shape[1])}
+
+
+# the scaling program's BA map: the JAX report's deployment shape
+# (``scaling_model.py:294-296``) and association chunk
+SCALING_BA_POINTS, SCALING_BA_MAP, SCALING_BA_CHUNK = 1024, 4096, 8
+SCALING_REPORT_POSES = 1024
+
+
+def cg_legacy_model(n_poses: int, n_edges: int, counted: dict, pcg_ms: float | None,
+                    cg_iters_run: int, fabric=None) -> dict:
+    """Counterpart of the JAX program's ``_pgo_comm_compute_model`` (the
+    edge-sharded PCG step's analytic model): that formula's bytes per GN
+    iteration, N·168 + 4 + cg_iters·N·24, at its own cg_iters (max(N/8, 32))
+    and at the run's, beside the bytes and calls the mesh counted in the run
+    (``counted``: per GN iteration, by collective and axes). With the card's
+    ms of one PCG GN iteration on one device and a ``fabric``, rows for 8
+    shards within a node and 16 over two nodes: the compute term that ms
+    over the shards (as the JAX formula divides its FLOPs), the counted
+    collectives on the node's fabric (8) or all between nodes (16, as the JAX
+    formula charges them), through ``efficiency_from_card_ms``."""
+
+    def formula(cg):
+        return n_poses * (24 + 144) + 4 + cg * n_poses * 24
+
+    cg_model = max(n_poses // 8, 32)
+    calls = sum(v["calls"] for v in counted.values())
+    nbytes = sum(v["bytes"] for v in counted.values())
+    out = {"bytes_psum_per_gn_iter": formula(cg_model), "cg_iters_model": cg_model,
+           "bytes_formula_at_run_cg_iters": formula(cg_iters_run),
+           "cg_iters_run": cg_iters_run,
+           "counted_per_gn": {"bytes": nbytes, "calls": calls, "by_axes": counted},
+           "pcg_ms_per_gn_one_device": pcg_ms}
+    if pcg_ms is None or fabric is None:
+        return out
+    for name, shards, shape in (("intra_8gpu", 8, [8]), ("inter_2node", 16, [2, 8])):
+        on = {"bytes": nbytes, "count": calls}
+        off = {"bytes": 0, "count": 0}
+        meas = {"mesh": {"shape": shape},
+                # a shard's edge rows (z_q, z_t, weight), the DD rows' definition
+                "input_bytes_per_device": -(-n_edges // shards) * (4 + 3 + 6) * 4,
+                "collectives_per_gn": ({"intra": on, "inter": off} if len(shape) == 1
+                                       else {"intra": off, "inter": on})}
+        out[name] = {"shards": shards, **SM.efficiency_from_card_ms(
+            meas, pcg_ms / shards, 0.0, fabric)}
+    return out
 
 
 def measure_scaling(poses: int = 256, device=None) -> dict:
@@ -806,8 +863,13 @@ def measure_scaling(poses: int = 256, device=None) -> dict:
     ``scaling_meshes``, its error and its largest deviation from 8 dense
     one-device steps, gated as the JAX program gates (deviation < 1e-2 m, no
     worse than dense + 5 mm), and the edge-sharded PCG on 8 shards (< half
-    the initial error); each mesh's collectives per GN iteration; on a GPU
-    the card's ms (``dd_card_ms``, 1-D layout)."""
+    the initial error); each mesh's collectives per GN iteration; the PCG's
+    legacy model (``cg_legacy_model``). On a GPU also the card's ms
+    (``dd_card_ms``, 1-D layout, bare and with the BA map), one PCG GN
+    iteration's ms, and the DD report (``scaling_model.dd_scaling_report``)
+    over ``hgx_h100`` at the one-rank NCCL latency floor measured here.
+    ``card_ms`` is measured at the report's one-node shape, 1024 poses on 8
+    shards, whatever ``poses`` is."""
     device = resolve_device(device)
     n_poses = poses
     poses0, edges, gt = SM.make_survey_graph(n_poses, noise=0.02, device=device)
@@ -858,14 +920,37 @@ def measure_scaling(poses: int = 256, device=None) -> dict:
     collectives["cg_8dev"] = _per_gn(mesh, iters)
     if not err_cg < 0.5 * err0:
         raise AssertionError(f"cg_8dev: error {err_cg} not under half of {err0}")
+    card_ms = model = pcg_ms = fabric = None
+    if device.type == "cuda":
+        fabric = SM.hgx_h100(SM.nccl_latency_floor_s(device))
+        # one shard's ms at the report's one-node shape (1024 poses, 8 shards)
+        rp, re_, rg = ((poses0, edges, gt) if n_poses == SCALING_REPORT_POSES
+                       else SM.make_survey_graph(SCALING_REPORT_POSES, noise=0.02,
+                                                 device=device))
+        card_ms = {"pgo": dd_card_ms(rp, re_, meshes["dd_8dev_1d"])}
+        ms = SM.survey_ba_map(rg, SCALING_BA_POINTS, SCALING_BA_MAP)
+        card_ms["ba"] = dd_card_ms(rp, re_, meshes["dd_8dev_1d"], map_shard=ms,
+                                   assoc_chunk=SCALING_BA_CHUNK)
+        del ms, rp, re_, rg
+        # the separator solve's cost does not depend on the values: the BA
+        # row takes the PGO one, as the JAX program does
+        card_ms["ba"]["sep_solve_ms_per_gn"] = card_ms["pgo"]["sep_solve_ms_per_gn"]
+        model = SM.dd_scaling_report(fabric, card_ms, SCALING_BA_POINTS, SCALING_BA_MAP,
+                                     device=device)
+        pcg_ms = _card_ms(lambda: PG.pgo_step_cg(poses0, edges, cg_iters=cg_iters), reps=3)
     summary = {
         "poses": n_poses, "edges": int(edges.i.shape[0]), "gn_iters": iters,
         "platform": _platform(device),
         "measured": results,
         # calls and bytes (one shard's contribution) by collective and axes
         "collectives_per_gn": collectives,
-        "card_ms": (dd_card_ms(poses0, edges, meshes["dd_8dev_1d"])
-                    if device.type == "cuda" else None),
+        "card_ms": card_ms,
+        # the DD report on the card (scaling_model.dd_scaling_report): the JAX
+        # program's four rows from the card's shard ms and a fabric's
+        # published figures; None on the CPU
+        "model": model,
+        "model_cg_legacy": cg_legacy_model(n_poses, int(edges.i.shape[0]),
+                                           collectives["cg_8dev"], pcg_ms, cg_iters, fabric),
         "device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu",
     }
     return {"summary": summary}
@@ -944,6 +1029,9 @@ def main(argv=None):
         res = measure_scaling(a.poses)
         write_scaling(res)
         print(json.dumps(res["summary"]["measured"]))
+        print(json.dumps({k: {e: v.get(e) for e in ("efficiency_per_iter_measured",
+                                                     "efficiency_full_solve_measured")}
+                          for k, v in (res["summary"]["model"] or {}).items()}))
     elif a.program == "slam":
         res = measure_slam(a.frames, a.seed, a.lidars, a.traj, a.noise)
         write_slam(res, lidars=a.lidars)

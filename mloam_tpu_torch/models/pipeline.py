@@ -39,7 +39,11 @@ blocks' eigenvalues), as the JAX package does; the steady mode-0 step does
 not. The first sweep with a full window runs the steady step (the JAX
 package runs it unfused; with nothing to fuse the two are the same code).
 Each sweep's three stages run under the stage timers ``odom_mea_pre`` /
-``odom_tracker`` / ``odom_solver`` (``utils/timing``).
+``odom_tracker`` / ``odom_solver`` (``utils/timing``). They read the host
+clock only, so they add no wait for the device: a stage's time is the
+host's time to issue it. ``sync_timing=True`` (on every pipeline, passed
+down) synchronises the device at each timer's entry and exit, so each stage
+is timed with its device work (the JAX package's ``MLOAM_SYNC_TIMING=1``).
 
 Per sweep the hand-written kernels run once per lidar for label propagation
 (``ops/hopper_labels``; once for the whole rig on a batched steady sweep,
@@ -153,9 +157,10 @@ class OdometryPipeline:
     when that device is absent.
     """
 
-    def __init__(self, cfg: MloamConfig, device=None):
+    def __init__(self, cfg: MloamConfig, device=None, sync_timing: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.sync_timing = sync_timing
         self._rays = [RI.unit_rays(m, device=self.device)
                       for m in cfg.rig.models]
         # the batched frontend of the steady step (module docstring)
@@ -319,11 +324,11 @@ class OdometryPipeline:
         motion is the refined inter-sweep motion read back off the window,
         inverse(poses[-2]) ∘ poses[-1]; no tracker spectrum is returned."""
         L = self.cfg.rig.n_lidars
-        with timing.timer("odom_mea_pre"):
+        with timing.timer("odom_mea_pre", sync=self.sync_timing):
             ffs, corners, surfs, outliers = self._frontends(
                 imgs, batched=self._uniform_rig)
         skip = self.cfg.tracker.skip_steady
-        with timing.timer("odom_tracker"):
+        with timing.timer("odom_tracker", sync=self.sync_timing):
             if skip:
                 motion, trk_eig = motion0, None
                 desk = (FeatureFrame(*(TR.deskew_features(motion0, f) for f in ffs[0]))
@@ -331,7 +336,7 @@ class OdometryPipeline:
             else:
                 res, desk = self._track(prev_feat0, ffs[0], motion0)
                 motion, trk_eig = res.pose, res.eig
-        with timing.timer("odom_solver"):
+        with timing.timer("odom_solver", sync=self.sync_timing):
             window, solve, pred, refined = self._window_step_impl(
                 window, world_pose, motion, (motion,) * L, corners, surfs,
                 mode2=False, calibrate_ext=False, lidars=tuple(range(L)))
@@ -468,7 +473,7 @@ class OdometryPipeline:
         if self._is_steady():
             return self._solved_output(*self._steady(imgs))
 
-        with timing.timer("odom_mea_pre"):
+        with timing.timer("odom_mea_pre", sync=self.sync_timing):
             ffs, corners, surfs, outliers = self._frontends(imgs)
             self.last_outlier = outliers
 
@@ -486,7 +491,7 @@ class OdometryPipeline:
 
         # --- scan-to-scan tracking (the reference always; all lidars in
         # mode 2)
-        with timing.timer("odom_tracker"):
+        with timing.timer("odom_tracker", sync=self.sync_timing):
             res0, desk0 = self._track(self.prev_feats[0], ffs[0], self.motions[0])
         self.motions[0] = res0.pose
         new_prev = [desk0]
@@ -523,7 +528,7 @@ class OdometryPipeline:
             # de-skew the mode the sweep was tracked in
             calibrate_ext = self.ext_mode == 1
             lidars = (0,) if self.ext_mode == 2 else tuple(range(L))
-            with timing.timer("odom_solver"):
+            with timing.timer("odom_solver", sync=self.sync_timing):
                 self.window, solve, pred, refined = self._window_step_impl(
                     *step_args, mode2=mode2, calibrate_ext=calibrate_ext,
                     lidars=lidars)
@@ -571,10 +576,11 @@ class FullPipeline:
     passes another; raises when that device is absent.
     """
 
-    def __init__(self, cfg: MloamConfig, device=None):
+    def __init__(self, cfg: MloamConfig, device=None, sync_timing: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.odom = OdometryPipeline(cfg, device=self.device)
+        self.sync_timing = sync_timing
+        self.odom = OdometryPipeline(cfg, device=self.device, sync_timing=sync_timing)
         self.mapper_state = MP.init_state(cfg, device=self.device)
         # whether the calibrated extrinsic covariance has been installed into
         # the mapper (the reference mapper reads it off /extrinsics once the
@@ -627,7 +633,7 @@ class FullPipeline:
             win = self.odom.window
             corner_b, surf_b = self._merge_impl(win.ext, win.corner, win.surf)
             outlier_b = self._merge_outlier_impl(win.ext, self.odom.last_outlier)
-            with timing.timer("map_step"):
+            with timing.timer("map_step", sync=self.sync_timing):
                 self.mapper_state, mout = MP.mapper_step(
                     self.mapper_state, out.pose, corner_b, surf_b, cfg,
                     outlier=outlier_b)
@@ -704,10 +710,10 @@ class SlamPipeline:
     """
 
     def __init__(self, cfg: MloamConfig, loop_capacity: int | None = None,
-                 device=None):
+                 device=None, sync_timing: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.full = FullPipeline(cfg, device=self.device)
+        self.full = FullPipeline(cfg, device=self.device, sync_timing=sync_timing)
         self._loop_capacity = int(loop_capacity if loop_capacity is not None
                                   else cfg.loop.capacity)
         self.loop_state = PGraph.init_state(

@@ -1,33 +1,66 @@
-"""Robust fitting with the product solver, and the stand-in problems the
-port's checks run it on.
+"""Real-data validation programs: the solver stack on the reference's data
+files, read from a directory the caller names.
 
-Counterpart of ``mloam_tpu/models/realdata.py``: ``fit_robust`` (the
-reference's ``ceres_robust_curve_fitting.cpp``: an exponential or a quintic
-fitted with trivial / huber / gm losses, or gnc_gm with the reference's
-outer μ schedule) on ``solver/gauss_newton``, and ``load_xy``. The JAX
-package's three programs (``curve``, ``nonconvex``, ``bal``) read the
-reference's data files, which are not in this repository; they are not
-here. In their place the checks run the solvers on problems made from a
-seed: ``synthetic_curve`` (exp(0.3x + 0.1) with outliers),
-``synthetic_quintic`` (4x⁵ − 2x⁴ + 3x³ − 4x² + 5x − 6 with heavy outliers)
-and ``synthetic_bal`` (a ring of Snavely cameras around a point cloud, the
-shape of ``problem-49-7776-pre.txt`` by default).
+Counterpart of ``mloam_tpu/models/realdata.py``. Programs (the summary lands
+in ``results_torch/realdata/summary.json`` under the current directory):
+
+  curve      robust exponential fit y = exp(m x + c) on
+             ``data_curve_fitting.txt`` (ground truth m = 0.3, c = 0.1, the
+             reference program's ``ceres_robust_curve_fitting.cpp:84-85``):
+             trivial 1.0, huber 0.5, gm 1.0 (warm-started from huber's fit)
+             and gnc_gm 1.0 with the reference's outer μ schedule.
+  nonconvex  robust quintic fit on ``data_non_convex_fitting.txt`` (ground
+             truth 4x⁵ − 2x⁴ + 3x³ − 4x² + 5x − 6): trivial 1.0, huber 2.0,
+             gm 5.0 (warm from huber) and gnc_gm 5.0.
+  bal        bundle adjustment on ``problem-49-7776-pre.txt`` (the reference's
+             ``bundle_adjuster.cc``): 25 LM iterations with the trivial loss,
+             25 with huber at scale 2.0, and the observation-sharded
+             assembly against the dense one on a mesh (the CLI passes the
+             stacked 8-shard mesh, ``parallel/mesh.make_mesh(8)``; the JAX
+             program shards over every device it sees when there are two or
+             more).
+
+The data directory has no default, and a missing file raises
+``FileNotFoundError`` naming it: nothing is made up in its place. Besides
+the programs, ``fit_robust`` (the curve fits' solver) and stand-in problems
+made from a seed in the reference files' shapes, which the checks write in
+the reference's formats: ``synthetic_curve`` (exp(0.3x + 0.1) with
+outliers), ``synthetic_quintic`` (the quintic with heavy outliers) and
+``synthetic_bal`` (a ring of Snavely cameras around a point cloud, the shape
+of ``problem-49-7776-pre.txt`` by default).
+
+Usage (runs on the GPU unless ``--device cpu``):
+    python -m mloam_tpu_torch.models.realdata {curve,nonconvex,bal,all} --data-dir DIR
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import math
+import os
+import time
 
 import numpy as np
 import torch
 
 from mloam_tpu_torch import resolve_device
+from mloam_tpu_torch.parallel import mesh as M
+from mloam_tpu_torch.solver import bal as BAL
 from mloam_tpu_torch.solver import robust
-from mloam_tpu_torch.solver.bal import snavely_residual
 from mloam_tpu_torch.solver.gauss_newton import gauss_newton
 
 CURVE_GT = (0.3, 0.1)
 QUINTIC_GT = (4.0, -2.0, 3.0, -4.0, 5.0, -6.0)
+CURVE_FILE = "data_curve_fitting.txt"
+NONCONVEX_FILE = "data_non_convex_fitting.txt"
+BAL_FILE = "problem-49-7776-pre.txt"
+# (loss, scale) in the order the programs fit them; gm starts from huber's fit
+CURVE_LOSSES = (("trivial", 1.0), ("huber", 0.5), ("gm", 1.0), ("gnc_gm", 1.0))
+QUINTIC_LOSSES = (("trivial", 1.0), ("huber", 2.0), ("gm", 5.0), ("gnc_gm", 5.0))
+BAL_ITERS = 25
+BAL_HUBER_SCALE = 2.0
+OUTDIR = "results_torch"
 
 
 def load_xy(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -35,6 +68,15 @@ def load_xy(path: str) -> tuple[np.ndarray, np.ndarray]:
     line (the reference's ``data_*_fitting.txt`` format)."""
     d = np.loadtxt(path, delimiter=",", skiprows=1)
     return d[:, 0].astype(np.float32), d[:, 1].astype(np.float32)
+
+
+def write_xy(path: str, x, y):
+    """Write (x, y) in the format ``load_xy`` reads: a header line, then one
+    ``x,y`` line a sample, float32 values exactly (9 significant digits)."""
+    with open(path, "w") as f:
+        f.write("x,y\n")
+        f.write("".join(f"{a:.9g},{b:.9g}\n" for a, b in
+                        zip(np.asarray(x, np.float32), np.asarray(y, np.float32))))
 
 
 def fit_robust(x: np.ndarray, y: np.ndarray, model: str, loss: str,
@@ -165,7 +207,7 @@ def synthetic_bal(seed: int = 0, n_cams: int = 49, n_pts: int = 7776,
     pt_idx = np.repeat(np.arange(n_pts), k)
     within = np.arange(k.sum()) - np.repeat(np.cumsum(k) - k, k)
     cam_idx = (np.repeat(start, k) + 2 * within) % n_cams
-    proj = snavely_residual(torch.as_tensor(cams[cam_idx]), torch.as_tensor(pts[pt_idx]),
+    proj = BAL.snavely_residual(torch.as_tensor(cams[cam_idx]), torch.as_tensor(pts[pt_idx]),
                             torch.zeros((len(pt_idx), 2), dtype=torch.float64)).numpy()
     obs = proj + pixel_noise * rng.standard_normal(proj.shape)
     init = cams.copy()
@@ -174,3 +216,121 @@ def synthetic_bal(seed: int = 0, n_cams: int = 49, n_pts: int = 7776,
     init[:, 6] *= 1 + 0.01 * rng.standard_normal(n_cams)
     init_pts = pts + pos_noise * rng.standard_normal(pts.shape)
     return (init, init_pts, cam_idx, pt_idx, obs), (cams, pts)
+
+
+# ----------------------------------------------------------------- programs
+
+def _data_file(data_dir: str, name: str) -> str:
+    path = os.path.join(data_dir, name)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {name} in the data directory {data_dir!r}: {path}")
+    return path
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+
+
+def _ladder(x, y, model: str, losses, device) -> list:
+    """[(loss, params)] fitted in ``losses`` order; gm starts from huber's
+    fit (plain GM stalls from the cold start, the part Ceres's warm state
+    plays in the reference), gnc_gm from the cold start."""
+    fits, warm = [], None
+    for loss, scale in losses:
+        p = fit_robust(x, y, model, loss, scale, p_init=warm if loss == "gm" else None,
+                       device=device)
+        if loss == "huber":
+            warm = p
+        fits.append((loss, p))
+    return fits
+
+
+def curve_program(data_dir: str, device=None) -> dict:
+    """The robust exponential fits of ``data_curve_fitting.txt``: m, c and
+    their distance from the ground truth for each loss."""
+    device = resolve_device(device)
+    x, y = load_xy(_data_file(data_dir, CURVE_FILE))
+    out = {"n": int(x.size), "gt": CURVE_GT, "fits": {}, "device": _device_name(device)}
+    for loss, p in _ladder(x, y, "exp", CURVE_LOSSES, device):
+        err = float(np.hypot(p[0] - CURVE_GT[0], p[1] - CURVE_GT[1]))
+        out["fits"][loss] = {"m": float(p[0]), "c": float(p[1]), "param_err": err}
+        print(f"  curve {loss:8s} m={p[0]:.4f} c={p[1]:.4f} err={err:.4f}", flush=True)
+    return out
+
+
+def nonconvex_program(data_dir: str, device=None) -> dict:
+    """The robust quintic fits of ``data_non_convex_fitting.txt``: the
+    coefficients and their largest distance from the ground truth for each
+    loss (the squared-residual losses scaled to the inlier band)."""
+    device = resolve_device(device)
+    x, y = load_xy(_data_file(data_dir, NONCONVEX_FILE))
+    out = {"n": int(x.size), "gt": QUINTIC_GT, "fits": {}, "device": _device_name(device)}
+    for loss, p in _ladder(x, y, "quintic", QUINTIC_LOSSES, device):
+        err = float(np.max(np.abs(p - np.asarray(QUINTIC_GT))))
+        out["fits"][loss] = {"coeffs": [float(v) for v in p], "max_coeff_err": err}
+        print(f"  quintic {loss:8s} max|dcoef|={err:.3f} coeffs={np.round(p, 2)}",
+              flush=True)
+    return out
+
+
+def bal_program(data_dir: str, mesh=None, device=None, histories: dict | None = None) -> dict:
+    """``problem-49-7776-pre.txt``: LM with point-Schur elimination, trivial
+    and huber; with ``mesh`` the observation-sharded assembly's largest
+    error relative to the dense assembly, block by block. ``histories``,
+    when given, receives the two LM cost histories ("trivial", "huber")."""
+    device = resolve_device(device)
+    prob = BAL.load_bal(_data_file(data_dir, BAL_FILE), device=device)
+    out = {"cams": int(prob.cams.shape[0]), "pts": int(prob.pts.shape[0]),
+           "obs": int(prob.obs.shape[0])}
+    t0 = time.perf_counter()
+    _, _, hist = BAL.solve_bal(prob, iters=BAL_ITERS)
+    out["initial_cost"] = float(hist[0])
+    out["final_cost"] = float(hist[-1])
+    out["lm_iters"] = len(hist) - 1
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  bal trivial: {hist[0]:.4e} -> {hist[-1]:.4e} ({out['wall_s']:.1f}s)", flush=True)
+    _, _, hist_h = BAL.solve_bal(prob, iters=BAL_ITERS, loss="huber",
+                                 loss_scale=BAL_HUBER_SCALE)
+    out["huber_final_cost"] = float(hist_h[-1])
+    if histories is not None:
+        histories.update(trivial=hist, huber=hist_h)
+    print(f"  bal huber:   {hist_h[0]:.4e} -> {hist_h[-1]:.4e}", flush=True)
+    if mesh is not None:
+        d = BAL.dense_assemble(prob.cams, prob.pts, prob, "trivial", 1.0, 1.0)
+        s = BAL.make_sharded_assemble(mesh)(prob.cams, prob.pts, prob, "trivial", 1.0, 1.0)
+        out["sharded_assembly_rel_err"] = [
+            float((a - b).abs().max() / (1e-9 + a.abs().max())) for a, b in zip(d, s)]
+        print(f"  sharded assembly rel err: {max(out['sharded_assembly_rel_err']):.2e}",
+              flush=True)
+    out["device"] = _device_name(device)
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(prog="python -m mloam_tpu_torch.models.realdata")
+    ap.add_argument("program", choices=("curve", "nonconvex", "bal", "all"))
+    ap.add_argument("--data-dir", required=True,
+                    help=f"directory holding {CURVE_FILE}, {NONCONVEX_FILE} and {BAL_FILE}")
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    a = ap.parse_args(argv)
+    device = resolve_device(a.device)
+    res = {}
+    if a.program in ("curve", "all"):
+        print(f"curve fitting ({CURVE_FILE}):", flush=True)
+        res["curve"] = curve_program(a.data_dir, device)
+    if a.program in ("nonconvex", "all"):
+        print(f"non-convex quintic ({NONCONVEX_FILE}):", flush=True)
+        res["nonconvex"] = nonconvex_program(a.data_dir, device)
+    if a.program in ("bal", "all"):
+        print(f"bundle adjustment ({BAL_FILE}):", flush=True)
+        res["bal"] = bal_program(a.data_dir, M.make_mesh(8, device=device), device)
+    d = os.path.join(OUTDIR, "realdata")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "summary.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"wrote {d}/summary.json", flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -166,7 +166,7 @@ def run(n_frames: int = 40, seed: int = 0, verbose: bool = True,
     t_start = time.perf_counter()
     for i in range(n_frames):
         frames = [RangeImage(*(f[i] for f in imgs)) for imgs in seqs]
-        with timing.timer("odom_process"):   # synchronises the device
+        with timing.timer("odom_process", sync=True):   # waits for the device
             out = pipe.process(frames)
         full = out.full if slam else out
         if mapping or slam:

@@ -11,10 +11,14 @@ lidar, as a rig of mixed sensor models does),
 then drives ``OdometryPipeline.process`` (with ``--mapping``:
 ``FullPipeline.process``, warmed until its map holds keyframes; every
 second sweep is then mapped) on fresh sweeps: ``n_sweeps``
-untraced, whose wall time and stage times (the pipeline's own
-``utils/timing`` spans) are printed, and ``n_sweeps`` under
-``torch.profiler``, from which come the device-busy time and idle share, the
-device ops per sweep and the kernels and host ops that take most time.
+untraced with ``sync_timing`` on, whose wall time and stage times (the
+pipeline's own ``utils/timing`` spans, each waiting for the device at its
+entry and exit, so a stage's time holds its device work) are printed;
+``n_sweeps`` untraced with the stage timers reading the host clock only (the
+pipeline's default), whose wall time is printed beside; and ``n_sweeps``
+under ``torch.profiler`` (``sync_timing`` on), from which come the
+device-busy time and idle share, the device ops per sweep and the kernels
+and host ops that take most time.
 
 With ``--slam``: ``SlamPipeline`` on the floor loop course (mapping every
 third sweep, keyframes every 0.5 m, 4 recent keyframes excluded, the
@@ -22,7 +26,8 @@ correlation seed on), warmed until its keyframe sweeps submit detections;
 then every sweep is traced on its own until ``n_sweeps`` of each kind were:
 the keyframe sweep (the sweep after a keyframe, which adds it to the loop
 graph and submits a detection), the mapped sweep and the pass-through sweep;
-for each kind its device ops, device-busy ms, traced wall ms and idle share.
+for each kind its device ops, device-busy ms, traced wall ms and idle share
+(no stage time is read there, so the stage timers keep the default).
 
 One JSON object per line. Needs a CUDA device.
 """
@@ -115,11 +120,11 @@ def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False
                                               experiments.CALIB_TANGENTS[:L - 1]],
                                device=dev))
     warm = cfg.odometry.window_size + 3
-    seqs, _ = run_synthetic.render_rig(cfg, warm + 2 * n_sweeps, seed=0, extrinsics=ext,
-                                       device=dev)
+    n_total = warm + 3 * n_sweeps
+    seqs, _ = run_synthetic.render_rig(cfg, n_total, seed=0, extrinsics=ext, device=dev)
     frames = iter([RangeImage(*(f[i] for f in imgs)) for imgs in seqs]
-                  for i in range(warm + 2 * n_sweeps))
-    pipe = (FullPipeline if mapping else OdometryPipeline)(cfg, device=dev)
+                  for i in range(n_total))
+    pipe = (FullPipeline if mapping else OdometryPipeline)(cfg, device=dev, sync_timing=True)
     odom = pipe.odom if mapping else pipe
     if L > 1:
         odom.set_extrinsics(ext)
@@ -129,17 +134,26 @@ def main(n_sweeps: int = 3, trace_path: str | None = None, mapping: bool = False
     for _ in range(warm):
         pipe.process(next(frames))
 
+    def untraced_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_sweeps):
+            pipe.process(next(frames))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_sweeps
+
     timing.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_sweeps):
-        pipe.process(next(frames))
-    torch.cuda.synchronize()
+    wall_ms = untraced_ms()
+    stage_ms = {k: [x * 1e3 for x in timing._registry[k]] for k in stages}
+    pipe.sync_timing = odom.sync_timing = False
+    wall_ms_host_timers = untraced_ms()
+    pipe.sync_timing = odom.sync_timing = True
     print(json.dumps({
         "untraced_sweeps": n_sweeps,
-        "wall_ms_per_sweep_untraced": (time.perf_counter() - t0) * 1e3 / n_sweeps,
+        "wall_ms_per_sweep_untraced": wall_ms,
+        "wall_ms_per_sweep_untraced_host_timers": wall_ms_host_timers,
         "mapping": mapping, "lidars": L, "batched_frontend": odom._uniform_rig,
-        "stage_ms": {k: [x * 1e3 for x in timing._registry[k]] for k in stages},
+        "stage_ms": stage_ms,
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
     def sweeps():

@@ -2,8 +2,12 @@
 
 Same stable stage names as the JAX package's registry (odom_mea_pre,
 odom_process, odom_solver, ...). PyTorch returns from a CUDA op before the
-device finishes, so ``timer`` synchronises the device before it reads the
-clock on entry and on exit; on a CPU-only process that is a no-op.
+device finishes, so by default a ``timer`` reads the host clock only, as
+the JAX package's does: the time it records is the host's time to issue
+the stage, and the device is not waited for. ``timer(name, sync=True)``
+synchronises the device before it reads the clock on entry and on exit (the
+counterpart of ``block_until_ready`` at the JAX package's call sites); on a
+CPU-only process that is a no-op.
 """
 
 from __future__ import annotations
@@ -24,13 +28,15 @@ def _sync():
 
 
 @contextmanager
-def timer(name: str):
-    _sync()
+def timer(name: str, sync: bool = False):
+    if sync:
+        _sync()
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        _sync()
+        if sync:
+            _sync()
         _registry[name].append(time.perf_counter() - t0)
 
 

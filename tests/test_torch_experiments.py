@@ -127,12 +127,10 @@ DIFFERENCES = {
     "corridor": (set(), {"mapper"}),
     # likewise the timing note
     "long": (set(), {"timing_note"}),
-    # the JAX program's efficiency model reads compiled HLO against TPU
-    # constants and TPU-measured ms: no counterpart; the port counts its
-    # meshes' collectives and times the card (null on the CPU), and names
-    # the device it ran on
-    "scaling": ({"model", "chip_ms", "model_cg_legacy"},
-                {"collectives_per_gn", "card_ms", "device"}),
+    # the JAX program reads its chip ms from a file (chip_ms); the port times
+    # the card itself (card_ms, and the report in model: null on the CPU),
+    # writes the collectives its meshes count, and names the device it ran on
+    "scaling": ({"chip_ms"}, {"collectives_per_gn", "card_ms", "device"}),
 }
 
 

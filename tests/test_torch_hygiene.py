@@ -470,3 +470,21 @@ def test_the_deployment_entry_points_default_to_the_gpu():
                  lambda: X.measure_dynamic(2), lambda: X.run_sequence(platforms.synthetic(), 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+# ------------------------------------- the real-data programs and the report
+
+_TPU_CONSTANTS = ("ICI_BW", "DCN_BW", "VPU_FLOPS", "2.0e12", "2e12", "45e9", "6e9")
+
+
+@pytest.mark.parametrize("rel", ["parallel/scaling_model.py", "models/realdata.py",
+                                 "models/experiments.py"])
+def test_the_report_and_the_programs_name_no_tpu_constant_and_no_reference_path(rel):
+    """The scaling report takes its fabric from the caller (``Fabric``), and
+    the programs read the directory they are given: no TPU rate or
+    bandwidth, and no path to the reference's data on the machine the JAX
+    package was measured on."""
+    text = (PKG / rel).read_text()
+    bad = [c for c in _TPU_CONSTANTS if c in text]
+    assert not bad, bad
+    assert "reference/mloam_test" not in text and "REF_DATA" not in text
