@@ -9,7 +9,11 @@ a spill in a k-NN instantiation fails the run), holds each kernel against its
 plain PyTorch version on the card (label propagation: integer-exact; k-NN:
 distances to 1e-5 relative, indices equal wherever neighbouring distances are
 further apart than that, and equal at every slot on a grid built to tie),
-times them at the shapes the main path gives them (``ms``: CUDA events
+times them at the shapes the main path gives them (the band Cholesky K3,
+``csrc/band_chol.cu``: at the benchmark's KITTI 00 drive layout and the
+600-pose ring, against cuSOLVER's dense factor of the same band and against
+float64, two calls to the bit, a band that is not positive definite giving
+info and a NaN step; ``ms``: CUDA events
 around 20 back-to-back eager calls, as the first slice timed them;
 ``graph_ms``: the same calls captured in one CUDA graph and replayed, which
 leaves out the host's cost of issuing them), then drives four paths, each
@@ -89,8 +93,10 @@ sweeps must make:
   the order-independent segment sums are timed against ``index_add_`` on
   the inputs a sweep gives them;
 - a pose-graph ladder: ``optimize_pose_graph`` on ring graphs of 256 to 4096
-  poses by conjugate gradients and by the dense solve, timed and compared,
-  the dense solve's peak device memory recorded
+  poses by conjugate gradients and by the direct solve (on the band where
+  the ring's order allows, the counts of band and dense steps reported, as
+  on the slam paths), timed and compared, the direct solve's peak device
+  memory recorded
   (``mloam_tpu_torch.utils.pgo_ladder`` runs larger rings alone).
 - the ingest path: rendered sweeps written as KITTI ``.bin`` files (four
   also as binary PCD) are read back exactly by the port's C++ dataset
@@ -198,6 +204,7 @@ from mloam_tpu_torch.parallel import sharded_map as SMAP  # noqa: E402
 from mloam_tpu_torch.parallel import sharded_pgo as PG  # noqa: E402
 from mloam_tpu_torch.solver import bal as BAL  # noqa: E402
 from mloam_tpu_torch.ops import _build, hopper_knn, hopper_labels  # noqa: E402
+from mloam_tpu_torch.ops import hopper_band_chol as BC  # noqa: E402
 from mloam_tpu_torch.ops import knn as knn_ops  # noqa: E402
 from mloam_tpu_torch.ops import segsum, voxel  # noqa: E402
 from mloam_tpu_torch.sim import world as W  # noqa: E402
@@ -2213,6 +2220,138 @@ def phase_repeat_check(cfg):
 
 
 # --------------------------------------------------------------------------
+# K3: the pose graph's band Cholesky
+# --------------------------------------------------------------------------
+
+def band_system(poses, edges):
+    """(band, g, perm, dense H, order) of ``pgo_step``'s damped system at
+    ``poses``, the band in the reverse Cuthill-McKee order, damped as the
+    step damps it."""
+    n = poses.q.shape[0]
+    order = PG.edge_band_order(edges, n)
+    pairs, sums, g, _ = PG._pair_sums(poses, edges)
+    band = PG._band_from_pairs(pairs, sums, n, order)
+    H = PG._dense_from_pairs(pairs, sums, n)
+    for diag, at in ((band[:, 0], order.inv[0] * 6 + torch.arange(6, device=DEV)),
+                     (H.diagonal(), torch.arange(6, device=DEV))):
+        diag[at] += 1e3
+        diag += 1e-3 * (diag + 1e-3)
+        diag += 1e-8
+    return band, g, order.perm, H, order
+
+
+def band_bound_ms(n_rows, b):
+    """The least time for a band factorisation and both substitutions:
+    N (b^2 + 3 b) flop of the factorisation, 4 N b of the solves, at 67
+    TFLOP/s, against the band read and written once and g, x read and
+    written once at 3.35 TB/s."""
+    flop = n_rows * (b * b + 3 * b) + 4 * n_rows * b
+    nbytes = 2 * n_rows * (b + 1) * 4 + 3 * n_rows * 4
+    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flop
+
+
+def check_band_case(name, poses, edges):
+    """K3 against its plain version (the same function through cuSOLVER's
+    dense Cholesky, on the card) and against float64, two calls to the bit,
+    and its times beside the bound and the dense ``cholesky_ex`` of the
+    same H (``library_ms``, the path it replaces)."""
+    band0, g, perm, H, order = band_system(poses, edges)
+    n_rows, b = band0.shape[0], band0.shape[1] - 1
+    before = BC.launches
+    f1, f2 = band0.clone(), band0.clone()
+    x1, i1 = BC.band_solve(f1, g, perm)
+    x2, i2 = BC.band_solve(f2, g, perm)
+    torch.cuda.synchronize()
+    fp = band0.clone()
+    xp, ip = BC.band_solve_plain(fp, g, perm)
+    f64 = band0.double()
+    x64, _ = BC.band_solve_plain(f64, g.double(), perm)
+
+    def rel(a, ref):
+        return float((a.double() - ref).abs().max() / ref.abs().max())
+
+    bits = bool(torch.equal(x1, x2) and torch.equal(f1, f2) and torch.equal(i1, i2))
+    out = {"name": name, "poses": int(poses.q.shape[0]), "rows": n_rows,
+           "half_bandwidth": order.half_bandwidth, "b": b,
+           "info": int(i1), "plain_info": int(ip),
+           "x_max_abs_err": float((x1 - xp).abs().max()),
+           "x_rel_err_vs_plain": rel(x1, xp.double()),
+           "factor_max_abs_err": float((f1 - fp).abs().max()),
+           "factor_rel_err_vs_plain": rel(f1, fp.double()),
+           "x_rel_err_vs_f64": rel(x1, x64), "plain_x_rel_err_vs_f64": rel(xp, x64),
+           "factor_rel_err_vs_f64": rel(f1, f64), "plain_factor_rel_err_vs_f64": rel(fp, f64),
+           "two_calls_bit_equal": bits}
+    del fp, f64
+    ms = time_ms(lambda: BC.band_solve(band0.clone(), g, perm))
+    g_ms = graph_ms(lambda: BC.band_solve(band0.clone(), g, perm))
+    copy_ms = graph_ms(lambda: band0.clone())
+    plain_ms = time_ms(lambda: BC.band_solve_plain(band0.clone(), g, perm), reps=5, warm=1)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(H)
+        return torch.cholesky_solve(g[:, None], L)
+
+    library_ms = time_ms(library, reps=5, warm=1)
+    bound, by, flop = band_bound_ms(n_rows, b)
+    out.update(ms=ms, graph_ms=g_ms, clone_graph_ms=copy_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound, bound_by=by, flop=flop,
+               bound_share=bound / g_ms, launches=BC.launches - before)
+    if int(i1) or int(ip):
+        fail(f"band_chol {name}: a positive definite band gave info {int(i1)} / {int(ip)}")
+    if not bits:
+        fail(f"band_chol {name}: two calls gave other bits")
+    # no further from float64 than cuSOLVER's float32 factorisation in the same order
+    for key in ("x", "factor"):
+        mine, plain = out[f"{key}_rel_err_vs_f64"], out[f"plain_{key}_rel_err_vs_f64"]
+        if not mine <= max(4 * plain, 1e-6):
+            fail(f"band_chol {name}: {key} {mine} from float64, the plain version {plain}")
+    return out
+
+
+def pgo_counts(since=None):
+    """The direct pose-graph solves so far (on the band and dense, K3's
+    launches, the last half-bandwidth); less ``since``'s counts if given."""
+    now = {"band_steps": PG.band_steps, "dense_steps": PG.dense_steps,
+           "band_launches": BC.launches}
+    if since is not None:
+        now = {k: v - since[k] for k, v in now.items()}
+    return {**now, "last_half_bandwidth": PG.last_half_bandwidth}
+
+
+def phase_band_chol(report):
+    """K3 at the benchmark cell's shape (the 4541-pose KITTI 00 drive layout,
+    half-bandwidth 17) and at the 600-pose ring; a band that is not positive
+    definite gives info != 0 and ``pgo_step`` a NaN step; the launches
+    counted; the kernel's registers and spills (``ptxas -v``) recorded."""
+    fns = report.get("band_chol", {})
+    if not fns:
+        fail("band_chol: the ptxas report has no kernel")
+    cases = [check_band_case("kitti00_drive",
+                             *LADDER.drive_graph(4541, 640, 128, DEV, offset_max=8)),
+             check_band_case("ring_600", *LADDER.ring_graph(PGO_POSES, DEV))]
+    # not positive definite: a negative pivot at row 100, and NaN weights
+    band, g, perm, _, _ = band_system(*LADDER.ring_graph(PGO_POSES, DEV))
+    band[100, 0] = -1.0
+    before = BC.launches
+    x, info = BC.band_solve(band, g, perm)
+    poses, edges = LADDER.ring_graph(PGO_POSES, DEV)
+    w = edges.weight.clone()
+    w[7] = float("nan")
+    nan_step, _ = PG.pgo_step(poses, edges._replace(weight=w))
+    launched = BC.launches - before
+    non_pd = {"info": int(info), "nan_weight_step_all_nan": bool(torch.isnan(nan_step.t).all()),
+              "launches": launched}
+    emit({"kernel_checks": {"band_chol": cases, "band_chol_not_pd": non_pd,
+                            "band_chol_ptxas": list(fns.values())}})
+    if int(info) != 101:
+        fail(f"band_chol: a negative pivot at row 100 gave info {int(info)}")
+    if not non_pd["nan_weight_step_all_nan"] or launched != 2:
+        fail(f"band_chol: a NaN weight did not give a NaN step through the kernel: {non_pd}")
+    return cases
+
+
+# --------------------------------------------------------------------------
 # pose-graph checks
 # --------------------------------------------------------------------------
 
@@ -3025,8 +3164,10 @@ def main():
     t0 = time.perf_counter()
     lap = Laps()
     smi = phase_env()
-    phase_build()
+    report = phase_build()
     lap("build")
+    k3 = phase_band_chol(report)
+    lap("band_chol")
     cfg = platforms.synthetic(n_lidars=1)
     assert cfg.rig.models[0] == LidarModel(n_rings=16, n_cols=1800)
     rig_cfg = platforms.synthetic(n_lidars=2, extrinsic_mode=0)
@@ -3109,15 +3250,20 @@ def main():
     by_path.update(phase_robust_path())
     lap("robust_path")
 
+    before = pgo_counts()
     by_path["slam_path"], det_calls = phase_slam_path("slam_path", "floor", cfg)
+    pgo_by_path = {"slam_path": pgo_counts(before)}
     loop_checks, loop_shapes = loop_knn_checks(det_calls)
     emit({"kernel_checks": {"knn_loop": loop_checks}})
     k2["main_path_shapes"] += loop_shapes
     k2["max_abs_err"] = max([k2["max_abs_err"]] + [c["max_abs_err"] for c in loop_checks])
     lap("slam_path")
+    before = pgo_counts()
     by_path["slam_drift_path"], _ = phase_slam_path(
         "slam_drift_path", "drift", cfg, probe_from=DRIFT_PROBE_FROM, gate_loops=False,
         frames=DRIFT_FRAMES)
+    pgo_by_path["slam_drift_path"] = pgo_counts(before)
+    emit({"pgo_solves": pgo_by_path})
     lap("slam_drift_path")
     phase_repeat_check(cfg)
     lap("repeat_check")
@@ -3144,7 +3290,8 @@ def main():
     for kern, key in ((k1, "propagate_labels"), (k2, "knn")):
         kern["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         kern["launches"] = sum(kern["launches_by_path"].values())
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "band_chol": {"cases": k3, "launches": BC.launches,
+                                            "pgo_solves": pgo_counts()}})
     emit({"seconds": round(time.perf_counter() - t0, 1), "seconds_by_phase": lap.s,
           "package": mloam_tpu_torch.__version__})
     print(smi, flush=True)

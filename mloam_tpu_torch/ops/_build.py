@@ -4,7 +4,8 @@
 ``sm_90a`` into shared libraries with a plain C interface (no PyTorch
 headers, so a build takes seconds) under ``mloam_tpu_torch/_build/``, at
 first use, keyed by a hash of the sources, and loaded with ``ctypes``. One
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together (``build_all``); the
+first use of one kernel builds that kernel's source alone.
 
 ``csrc/*.cpp`` is host code (the dataset reader of ``utils/dataio``: file and
 packet decoding, gridding, prefetch threads). It goes the host route: the
@@ -80,12 +81,15 @@ def _lib_path(src: Path, flags=NVCC_FLAGS) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(verbose: bool = False) -> dict[str, Path]:
-    """Build every kernel source that has no up-to-date library yet; all
-    compilers run in parallel. Returns {stem: library path}."""
+def build_all(verbose: bool = False, stems=None) -> dict[str, Path]:
+    """Build every kernel source (or those of ``stems``) that has no
+    up-to-date library yet; all compilers run in parallel. Returns {stem:
+    library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, []
     for src in sources():
+        if stems is not None and src.stem not in stems:
+            continue
         lib = _lib_path(src)
         out[src.stem] = lib
         if lib.exists():
@@ -112,10 +116,11 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<stem>.cu``, built first if needed (that
+    source alone: a process that launches one kernel compiles one)."""
     lib = _libs.get(stem)
     if lib is None:
-        paths = build_all()
+        paths = build_all(stems=(stem,))
         if stem not in paths:
             raise RuntimeError(f"no kernel source csrc/{stem}.cu")
         lib = ctypes.CDLL(str(paths[stem]))

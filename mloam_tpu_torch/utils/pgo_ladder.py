@@ -4,7 +4,9 @@
 
 For each pose count N: a ring (``ring_graph``) solved by ``K`` damped GN
 steps with each solver, the dense step's peak device memory, and the two
-solutions' largest difference. A dense solve that runs out of device memory
+solutions' largest difference. The "dense" solver is ``pgo_step``'s direct
+solve, on the band where the ring's order leaves one narrow enough
+(``band_steps`` / ``dense_steps`` and the half-bandwidth are reported). A dense solve that runs out of device memory
 is reported as such. One JSON line per ring, so that the pose count where
 ``optimize_pose_graph(solver="auto")`` switches
 (``sharded_pgo.AUTO_DENSE_MAX_POSES``) can be read off the card.
@@ -58,6 +60,40 @@ def ring_graph(n, device, seed=21, drift_total=None):
     return Pose(init.q.to(device), init.t.to(device)), edges
 
 
+def drive_graph(n, back, loops, device, seed=0, radius=40.0, offset_max=0):
+    """A drive of ``n`` poses that closes one turn of ``n - back`` poses and
+    then revisits its start for ``back`` more: sequential edges to the 4
+    predecessors, ``loops`` loop edges (weight 5) from every 5th pose of the
+    revisit to the pose it revisits, up to ``offset_max`` poses off (loop m
+    ``(5 m mod (2 offset_max + 1)) - offset_max``), relative-pose
+    measurements with 1e-3 noise, and a start drifted by a per-pose
+    increment. At (4541, 640, 128, offset_max=8) it has the layout of KITTI
+    00's loop graph in the benchmark (its reverse Cuthill-McKee
+    half-bandwidth is 17 poses)."""
+    g = torch.Generator().manual_seed(seed)
+    turn = n - back
+    ang = torch.arange(n) * (2 * math.pi / turn)
+    xi = torch.zeros(n, 6)
+    xi[:, 0], xi[:, 1] = radius * torch.cos(ang), radius * torch.sin(ang)
+    xi[:, 5] = ang + math.pi / 2
+    gt = se3.exp(xi)
+    gt = Pose(gt.q, xi[:, :3].clone())
+    i = torch.cat([torch.arange(n - k) for k in range(1, 5)])
+    j = torch.cat([torch.arange(k, n) for k in range(1, 5)])
+    li = turn + 5 * torch.arange(loops)
+    off = (5 * torch.arange(loops)) % (2 * offset_max + 1) - offset_max
+    i, j = torch.cat([i, (li - turn + off).clamp(min=0)]), torch.cat([j, li])
+    rel = se3.relative(Pose(gt.q[i], gt.t[i]), Pose(gt.q[j], gt.t[j]))
+    rel = se3.compose(rel, se3.exp(1e-3 * torch.randn(i.shape[0], 6, generator=g)))
+    w = torch.ones(i.shape[0], 6)
+    w[-loops:] = 5.0
+    edges = PG.PoseGraphEdges(*(x.to(device) for x in (i, j, rel.q, rel.t, w)))
+    drift = se3.exp(torch.outer(torch.arange(n, dtype=torch.float32),
+                                torch.tensor([0.004, 0.002, 0, 0, 0, 0.0004])))
+    init = se3.compose(gt, drift)
+    return Pose(init.q.to(device), init.t.to(device)), edges
+
+
 def pose_diff(a, b):
     """Largest translation difference (m) and quaternion difference (up to
     sign) between two pose sets."""
@@ -84,6 +120,7 @@ def rung(n, iters, order=("dense", "cg"), drift_total=600):
     init, edges = ring_graph(n, torch.device("cuda"), drift_total=drift_total)
     ms = {"dense": [], "cg": []}
     res, peak = {}, {}
+    steps = (PG.band_steps, PG.dense_steps)
     for solver in order:
         try:
             res[solver], t, peak[solver] = timed_solve(init, edges, solver, iters)
@@ -96,7 +133,10 @@ def rung(n, iters, order=("dense", "cg"), drift_total=600):
         ms[solver].append(t)
     out = {"poses": n, "gn_steps": iters, "cg_iters": n + n // 4,
            "dense_ms": ms["dense"], "cg_ms": ms["cg"], "peak_bytes": peak,
-           "auto_takes": "cg" if n > PG.AUTO_DENSE_MAX_POSES else "dense"}
+           "auto_takes": "cg" if n > PG.AUTO_DENSE_MAX_POSES else "dense",
+           # how the direct solves went: on the band, or densely
+           "band_steps": PG.band_steps - steps[0], "dense_steps": PG.dense_steps - steps[1],
+           "half_bandwidth": PG.last_half_bandwidth}
     if res.get("dense") is not None:
         dt, dq = pose_diff(res["cg"], res["dense"])
         out.update(faster="cg" if min(ms["cg"]) < min(ms["dense"]) else "dense",

@@ -19,7 +19,7 @@ from mloam_tpu_torch.models import pipeline as P
 from mloam_tpu_torch.models import platforms, run_synthetic
 from mloam_tpu_torch.core.se3 import Pose
 from mloam_tpu_torch.odometry import estimator as E
-from mloam_tpu_torch.ops import hopper_knn, hopper_labels
+from mloam_tpu_torch.ops import hopper_band_chol, hopper_knn, hopper_labels
 from mloam_tpu_torch.ops import knn as knn_ops
 from mloam_tpu_torch.sim import world as W
 
@@ -69,7 +69,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
 
 def test_kernel_sources_are_in_the_package():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["knn.cu", "labels.cu"]
+    assert names == ["band_chol.cu", "knn.cu", "labels.cu"]
     for n in names:
         text = (PKG / "csrc" / n).read_text()
         assert "torch/extension.h" not in text and "__global__" in text
@@ -167,9 +167,11 @@ def _has_try(fn):
 
 
 @pytest.mark.parametrize("fn", [hopper_labels.propagate_labels, hopper_knn.knn,
-                                knn_ops.knn, knn_ops.knn_auto],
+                                knn_ops.knn, knn_ops.knn_auto,
+                                hopper_band_chol.band_solve, hopper_band_chol.solve],
                          ids=["hopper_labels.propagate_labels", "hopper_knn.knn",
-                              "knn.knn", "knn.knn_auto"])
+                              "knn.knn", "knn.knn_auto", "hopper_band_chol.band_solve",
+                              "hopper_band_chol.solve"])
 def test_kernel_wrappers_have_no_try_around_the_launch(fn):
     assert not _has_try(fn)
 
@@ -192,6 +194,13 @@ def test_cuda_tensors_cannot_reach_the_plain_versions():
     assert src.index("if q.is_cuda:") < src.index("return hopper_knn.knn(") < src.index("knn_plain(")
     src = inspect.getsource(hopper_knn.knn)
     assert "knn_plain" not in src and "_build.check(err" in src
+    assert src.count("launches +=") == 1
+
+    src = inspect.getsource(hopper_band_chol.solve)
+    assert (src.index("if band.is_cuda:") < src.index("return band_solve(")
+            < src.index("band_solve_plain("))
+    src = inspect.getsource(hopper_band_chol.band_solve)
+    assert "band_solve_plain" not in src and "_build.check(err" in src
     assert src.count("launches +=") == 1
 
 
@@ -255,7 +264,7 @@ def test_label_kernel_refuses_an_image_too_large_before_any_build(monkeypatch, s
 def test_build_module_does_nothing_at_import_and_fails_loudly():
     from mloam_tpu_torch.ops import _build
 
-    assert [p.name for p in _build.sources()] == ["knn.cu", "labels.cu"]
+    assert [p.name for p in _build.sources()] == ["band_chol.cu", "knn.cu", "labels.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="error code 7"):
         _build.check(7, "x")
